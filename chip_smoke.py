@@ -15,8 +15,14 @@ result line):
    verdict) at the main path's shapes against their plain torch versions
    on seeded inputs covering v4 and v6, hits, misses and expired slots,
    REDIRECT cells with passing and failing L7, and unenforced directions,
-   then K2 and K3 on every case of ``kernels/edge_cases.py``; exact
-   equality. Each kernel is timed at both worlds' widths:
+   then K1, K2 and K3 on every case of ``kernels/edge_cases.py``; exact
+   equality. K1's line adds the dependent loads a row waits on
+   (``chain_mean``, ``chain_max``: 4 a row for a v4-only launch, which
+   walks the trie's own planes; else counted by the plain version of the
+   kernel's walk over the derived tables) and the build time and bytes of
+   the derived tables (``derive_ms``, ``derived_bytes``; 0 for a v4-only
+   launch, which derives nothing). Each kernel is timed at both worlds'
+   widths:
    ``ms``      device time per launch with L2 cold (evict-last lines
                demoted and a 256 MB write before each of 20 launches),
                from ``torch.profiler``;
@@ -401,6 +407,10 @@ def phase_kernels(cfg5, mixed, seed, report, card):
             flush)
         hits = int((meta >= 0).sum())
         check(0 < hits < meta.numel(), f"K1 {w.name}: no hit/miss mix")
+        extra = lpm_derived_stats(w, largs, (idx, meta))
+        (report["lpm_lookup_fused"] if w is cfg5
+         else report["lpm_lookup_fused"][w.name]).update(extra)
+        line += " " + " ".join(f"{k}={v}" for k, v in extra.items())
         check(w.v4_only or (bool(b["is_v6"].any())
                             and bool((~b["is_v6"]).any())),
               f"K1 {w.name}: batch lacks a family")
@@ -440,13 +450,44 @@ def phase_kernels(cfg5, mixed, seed, report, card):
     return lines + [edge_line(seed)]
 
 
+def lpm_derived_stats(world, largs, want):
+    """K1's derived tables built anew on the card (host clock around the
+    build, synchronised), their bytes, and the dependent loads per row of
+    the plain version of the kernel's walk over them, whose results must
+    equal ``want``. A v4-only launch walks the trie's planes, 4 levels a
+    row, and derives nothing. → the fields K1's report and line add."""
+    import torch
+    from cilium_tpu_torch.kernels.lpm import lpm_derive, lpm_walk_derived
+    v4, v6, addr, is_v6, default, v4_only = largs
+    if v4_only:
+        return {"chain_mean": 4.0, "chain_max": 4, "derive_ms": 0.0,
+                "derived_bytes": 0}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d4, d6 = lpm_derive(v4), lpm_derive(v6)
+    torch.cuda.synchronize()
+    derive_ms = (time.perf_counter() - t0) * 1e3
+    idx, meta, steps = lpm_walk_derived(d4, d6, addr, is_v6, default)
+    check(torch.equal(idx, want[0]) and torch.equal(meta, want[1]),
+          f"K1 {world.name}: the derived walk differs from the plain one")
+    return {"chain_mean": float(steps.float().mean()),
+            "chain_max": int(steps.max()), "derive_ms": derive_ms,
+            "derived_bytes": sum(t.numel() * 4 for d in (d4, d6)
+                                 for t in d)}
+
+
 def edge_line(seed):
-    """K2 and K3 on every case of ``kernels/edge_cases.py``, exact against
-    their plain versions; → the phase line."""
+    """K1, K2 and K3 on every case of ``kernels/edge_cases.py``, exact
+    against their plain versions; → the phase line."""
     from cilium_tpu_torch.kernels import fused as fk
-    from cilium_tpu_torch.kernels.edge_cases import (edge_cases,
+    from cilium_tpu_torch.kernels.edge_cases import (edge_cases, lpm_args,
                                                      policy_args, probe_args)
-    probe, policy = edge_cases(seed)
+    probe, policy, lpm = edge_cases(seed)
+    for name, case in lpm.items():
+        args = lpm_args(case, DEVICE)
+        err = max_abs_err(fk.lpm_lookup_fused(*args),
+                          fk.lpm_lookup_plain(*args))
+        check(err == 0, f"K1 edge case {name}: max err {err}")
     for name, case in probe.items():
         args = probe_args(case, DEVICE)
         err = max_abs_err(fk.ct_probe_pair_fused(*args),
@@ -457,8 +498,8 @@ def edge_line(seed):
         err = max_abs_err(fk.policy_verdict_fused(*args),
                           fk.policy_verdict_plain(*args))
         check(err == 0, f"K3 edge case {name}: max err {err}")
-    return (f"edge cases: K2 {len(probe)} and K3 {len(policy)} cases "
-            f"exact (max_abs_err 0)")
+    return (f"edge cases: K1 {len(lpm)}, K2 {len(probe)} and K3 "
+            f"{len(policy)} cases exact (max_abs_err 0)")
 
 
 def drive(world, fn, fn_plain, wires, now0, compare_at):

@@ -38,7 +38,7 @@ _P, _LL, _I, _U = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
 #: library name → (source file, C entry point, its argument types)
 KERNELS = {
     "lpm": ("lpm_lookup.cu", "lpm_lookup_launch",
-            [_P, _P, _P, _LL, _P, _LL, _I, _I, _LL, _P, _P, _P]),
+            [_P, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _LL, _P, _P, _P]),
     "ct_probe": ("ct_probe_pair.cu", "ct_probe_pair_launch",
                  [_P, _P, _LL, _P, _P, _LL, _U, _I, _P, _P, _P]),
     "policy": ("policy_verdict.cu", "policy_verdict_launch",

@@ -1,5 +1,13 @@
-"""Seeded inputs on which a kernel of K2 (CT probe pair) or K3 (policy + L7
-+ verdict) could part from its plain version.
+"""Seeded inputs on which a kernel of K1 (LPM walk), K2 (CT probe pair) or
+K3 (policy + L7 + verdict) could part from its plain version.
+
+K1: v4 prefixes /0 to /32 and v6 /0 to /128 nested on one address (the
+non-byte-aligned ones fill several cells), overlapping prefixes in one
+byte cell, a cell with both a value and a child, misses that die at
+levels 0, 1, 3 and 15, runs of single-child nodes (ending in a value,
+with a branch or a value in the middle, past the last level), tries whose
+dead node is not inert (the full-depth walk), every warp mixing families,
+``v4_only`` with v6 rows set, and N = 0, 1 and 300.
 
 K2: probe runs that wrap from slot ``cap - 1`` to slot 0, expiries at the
 clock's edges above 2^31, two live copies of a key in one run, a dead copy
@@ -14,12 +22,13 @@ Everything is numpy in the reference's dtypes (uint32 CT arrays and key
 words, the uint16 verdict image, bool flags), made by one generator seeded
 with ``seed``: the CPU tests hand the same arrays to the JAX package and to
 the port, and ``chip_smoke.py`` holds the CUDA kernels against their plain
-versions on them. ``probe_args`` and ``policy_args`` place a case on a
-device as the wrappers' arguments.
+versions on them. ``lpm_args``, ``probe_args`` and ``policy_args`` place
+a case on a device as the wrappers' arguments.
 """
 
 from __future__ import annotations
 
+import ipaddress
 from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
@@ -28,10 +37,20 @@ import torch
 from cilium_tpu_torch import convert
 from cilium_tpu_torch.compile.ct_layout import CT_FIELDS, KEY_WORDS, \
     PROBE_DEPTH
+from cilium_tpu_torch.compile.lpm import build_lpm, pack_pfx
 from cilium_tpu_torch.kernels.hashing import hash_words_u64
 from cilium_tpu_torch.utils import constants as C
 
 _M32 = 0xFFFFFFFF
+
+
+class LpmCase(NamedTuple):
+    v4_nodes: np.ndarray          # [n4, 256, 3] int32
+    v6_nodes: np.ndarray          # [n6, 256, 3] int32
+    addr: np.ndarray              # [N, 4] uint32, v4-mapped
+    is_v6: np.ndarray             # [N] bool
+    default_index: int
+    v4_only: bool
 
 
 class ProbeCase(NamedTuple):
@@ -47,6 +66,192 @@ class PolicyCase(NamedTuple):
     #: ep_slot, direction, id_idx, proto, dport, http_method (int32),
     #: http_path [N, 64] uint8, est, reply, valid (bool)
     rows: Tuple[np.ndarray, ...]
+
+
+# --------------------------------------------------------------------------- #
+# K1
+# --------------------------------------------------------------------------- #
+_V4_BASE, _V6_BASE = "203.0.113.77", "2001:db8:aaaa:bbbb:cccc:dddd:eeee:ff01"
+
+
+def _addr(ip) -> int:
+    """An address as the 128-bit integer of its v4-mapped form."""
+    a = ipaddress.ip_address(ip)
+    return int(a) | (0xFFFF << 32) if a.version == 4 else int(a)
+
+
+def _trie(prefixes, v4_bits=0):
+    """Both tries of an ipcache holding ``prefixes``, prefix i naming
+    identity index i + 1."""
+    entries = {p: 100 + i for i, p in enumerate(prefixes)}
+    t = build_lpm(entries, {100 + i: i + 1 for i in range(len(prefixes))},
+                  0)
+    return t.v4_nodes, t.v6_nodes
+
+
+def _lpm_case(tries, addrs, v6, default_index=7, v4_only=False):
+    addr = np.array([[(a >> s) & 0xFFFFFFFF for s in (96, 64, 32, 0)]
+                     for a in addrs], dtype=np.uint32).reshape(-1, 4)
+    return LpmCase(tries[0], tries[1], addr, np.asarray(v6, dtype=bool)
+                   .reshape(-1), default_index, v4_only)
+
+
+def _around(rng, base, lengths, bits, n_random):
+    """``base``, and for each length the address with the bit just past it
+    and the bit just inside it flipped, and ``n_random`` addresses that
+    keep a random number of its leading bits. ``bits`` is 32 (v4) or
+    128."""
+    low = (1 << bits) - 1
+    top = _addr(base) & ~low
+    b = _addr(base) & low
+    out = [b]
+    for p in lengths:
+        if p < bits:
+            out.append(b ^ (1 << (bits - 1 - p)))
+        if p > 0:
+            out.append(b ^ (1 << (bits - p)))
+    for keep in rng.integers(0, bits + 1, n_random):
+        r = int.from_bytes(rng.bytes(bits // 8), "big")
+        mask = low ^ ((1 << (bits - int(keep))) - 1)
+        out.append((b & mask) | (r & ~mask & low))
+    return [top | a for a in out]
+
+
+def _lengths(rng, v6):
+    bits, base, lengths = ((128, _V6_BASE, (0, 48, 60, 64, 127, 128)) if v6
+                           else (32, _V4_BASE, (0, 1, 7, 8, 9, 12, 24, 31,
+                                                32)))
+    tries = _trie([f"{ipaddress.ip_network(f'{base}/{p}', strict=False)}"
+                   for p in lengths])
+    addrs = _around(rng, base, lengths, bits, 40)
+    return _lpm_case(tries, addrs, [v6] * len(addrs), default_index=3)
+
+
+def _listed(prefixes, probes, default_index=7):
+    addrs = [_addr(a) for a in probes]
+    return _lpm_case(_trie(prefixes), addrs,
+                     [":" in a for a in probes], default_index)
+
+
+def _same_cell():
+    """/24, /25, /26 and /27 share the cells of one node; each of its 256
+    bytes is probed, and one address past the /24."""
+    return _listed(["10.0.0.0/24", "10.0.0.0/25", "10.0.0.64/26",
+                    "10.0.0.96/27"],
+                   [f"10.0.0.{i}" for i in range(256)] + ["10.0.1.5"])
+
+
+_MISS_PREFIXES = ["10.1.2.0/24", "10.1.3.4/32", "2001:db8::1/128",
+                  "2001:db8:0:1::/64"]
+#: dies at v4 levels 0, 1, 3; v6 levels 0, 3, 15 and inside the /128's run
+_MISS_PROBES = ["11.1.2.3", "10.2.2.3", "10.1.3.5", "10.1.2.9", "10.1.3.4",
+                "3000::1", "2001:db9::1", "2001:db8::2", "2001:db8::1",
+                "2001:db8::1:0:1", "2001:db8:0:1::77", "2001:db8:0:2::1"]
+
+
+def _dead_not_inert(loop_to_root):
+    """The misses' tries with values in every cell of the dead node (or,
+    with ``loop_to_root``, half its cells leading back to the root): the
+    walk runs to full depth, and a row that dies early picks up the dead
+    node's value at the next level, as the reference does."""
+    case = _listed(_MISS_PREFIXES, _MISS_PROBES)
+    tries = []
+    for nodes in (case.v4_nodes.copy(), case.v6_nodes.copy()):
+        dead = nodes[-1]
+        if loop_to_root:
+            dead[::2, 0] = 0
+        else:
+            dead[:, 1] = 9
+            dead[:, 2] = pack_pfx(40, 7)
+        tries.append(nodes)
+    return case._replace(v4_nodes=tries[0], v6_nodes=tries[1])
+
+
+def _run_past_end():
+    """A /128's last node keeps its one cell but trades the value for a
+    child: the run of single-child nodes then runs past the last level."""
+    case = _listed(["2001:db8::5:0:0:1/128", "10.0.0.0/8"],
+                   ["2001:db8::5:0:0:1", "2001:db8::5:0:0:2", "10.9.9.9",
+                    "2001:db8::5:0:1:1"])
+    nodes = case.v6_nodes.copy()
+    leaf = nodes.shape[0] - 2                 # the last node built
+    nodes[leaf, 1] = [0, -1, -1]
+    return case._replace(v6_nodes=nodes)
+
+
+def _random_tries(rng, n_v4, n_v6):
+    pfx = set()
+    for _ in range(n_v4):
+        p = int(rng.integers(1, 33))
+        a = ipaddress.ip_address(int(rng.integers(0, 1 << 32)))
+        pfx.add(str(ipaddress.ip_network(f"{a}/{p}", strict=False)))
+    for _ in range(n_v6):
+        p = int(rng.choice([16, 32, 48, 56, 60, 64, 96, 112, 127, 128]))
+        a = ipaddress.ip_address(int.from_bytes(rng.bytes(16), "big"))
+        pfx.add(str(ipaddress.ip_network(f"{a}/{p}", strict=False)))
+    return sorted(pfx)
+
+
+def _mixed_rows(rng, prefixes, n):
+    """``n`` rows alternating v4 and v6 (every warp mixes families), each
+    near one of ``prefixes`` or random."""
+    nets = [ipaddress.ip_network(p) for p in prefixes]
+    v4 = [x for x in nets if x.version == 4]
+    v6 = [x for x in nets if x.version == 6]
+    addrs, fam = [], []
+    for j in range(n):
+        six = j % 2 == 1
+        pool, bits = (v6, 128) if six else (v4, 32)
+        r = int.from_bytes(rng.bytes(bits // 8), "big")
+        if pool and j % 5:
+            net = pool[int(rng.integers(0, len(pool)))]
+            keep = int(rng.integers(net.prefixlen, bits + 1)) if j % 3 \
+                else net.prefixlen
+            mask = ((1 << bits) - 1) ^ ((1 << (bits - keep)) - 1)
+            r = (int(net.network_address) & mask) | (r & ~mask)
+        addrs.append(r if six else r | (0xFFFF << 32))
+        fam.append(six)
+    return addrs, fam
+
+
+def _lpm_cases(rng):
+    cases = {"v4_lengths": _lengths(rng, False),
+             "v6_lengths": _lengths(rng, True),
+             "same_cell_overlap": _same_cell(),
+             "value_and_child": _listed(
+                 ["10.1.0.0/16", "10.1.2.0/24", "10.1.2.3/32"],
+                 ["10.1.2.3", "10.1.2.4", "10.1.3.3", "10.1.200.1",
+                  "10.2.0.0"]),
+             "misses_at_levels": _listed(_MISS_PREFIXES, _MISS_PROBES),
+             "run_value_end": _listed(
+                 ["2001:db8:0:1::1/128", "2001:db8:0:2::1/128"],
+                 ["2001:db8:0:1::1", "2001:db8:0:2::1", "2001:db8:0:1::2",
+                  "2001:db8:0:1:0:0:1:1", "2001:db8:0:1:8000::1",
+                  "2001:db8:0:3::1"]),
+             "run_branch_middle": _listed(
+                 ["2001:db8::1/128", "2001:db8::1:0:0:1/128"],
+                 ["2001:db8::1", "2001:db8::1:0:0:1", "2001:db8::2:0:0:1",
+                  "2001:db8::1:0:0:2", "2001:db8::1:0:1:1",
+                  "2001:db8:1::1", "2001:db8::1:0:0:0"]),
+             "run_value_middle": _listed(
+                 ["2001:db8::/64", "2001:db8::1/128", "2001:db8::/32"],
+                 ["2001:db8::1", "2001:db8::2", "2001:db8::1:0:0:1",
+                  "2001:db8:0:1::1", "2001:db9::1"]),
+             "run_past_last_level": _run_past_end(),
+             "dead_node_values": _dead_not_inert(False),
+             "dead_node_loops_to_root": _dead_not_inert(True)}
+    prefixes = _random_tries(rng, 150, 100)
+    tries = _trie(prefixes)
+    addrs, fam = _mixed_rows(rng, prefixes, 300)
+    mixed = _lpm_case(tries, addrs, fam, default_index=5)
+    cases["warps_mix_families_n300"] = mixed
+    cases["v4_only_with_v6_rows"] = mixed._replace(v4_only=True)
+    cases["n_0"] = mixed._replace(addr=mixed.addr[:0],
+                                  is_v6=mixed.is_v6[:0])
+    cases["n_1"] = mixed._replace(addr=mixed.addr[1:2],
+                                  is_v6=mixed.is_v6[1:2])
+    cases["default_index_0"] = mixed._replace(default_index=0)
+    return cases
 
 
 # --------------------------------------------------------------------------- #
@@ -342,9 +547,21 @@ def _policy_cases(rng):
 
 # --------------------------------------------------------------------------- #
 def edge_cases(seed: int = 0):
-    """→ ({name: ProbeCase}, {name: PolicyCase}), all from one generator."""
+    """→ ({name: ProbeCase}, {name: PolicyCase}, {name: LpmCase}), all
+    from one generator."""
     rng = np.random.default_rng(seed)
-    return _probe_cases(rng), _policy_cases(rng)
+    probe, policy = _probe_cases(rng), _policy_cases(rng)
+    return probe, policy, _lpm_cases(rng)
+
+
+def lpm_args(case: LpmCase, device):
+    """→ ``lpm_lookup_*``'s arguments (lpm_v4, lpm_v6, addr_words, is_v6,
+    default_index, v4_only)."""
+    return (torch.tensor(case.v4_nodes, device=device),
+            torch.tensor(case.v6_nodes, device=device),
+            torch.tensor(case.addr.view(np.int32), device=device),
+            torch.tensor(case.is_v6, device=device), case.default_index,
+            case.v4_only)
 
 
 def probe_args(case: ProbeCase, device):

@@ -2,7 +2,9 @@
 ``cilium_tpu/kernels/fused.py``; sources in ``cilium_tpu_torch/csrc/``).
 
 - ``lpm_lookup_fused`` (K1, ``csrc/lpm_lookup.cu``): both families' stride
-  walks in one launch, ``node``/``best``/``best_meta`` in registers.
+  walks in one loop, over the tables ``lpm_derived`` derives from each
+  trie on the card and caches; a v4-only launch walks the v4 trie's own
+  planes.
 - ``ct_probe_pair_fused`` (K2, ``csrc/ct_probe_pair.cu``): the forward and
   reverse CT probes in one launch.
 - ``policy_verdict_fused`` (K3, ``csrc/policy_verdict.cu``): policy ladder,
@@ -20,11 +22,15 @@ VMEM budget) they run at every geometry: there is no residency gate.
 
 from __future__ import annotations
 
+import weakref
+from typing import Dict, Tuple
+
 import torch
 
 from cilium_tpu_torch.kernels import _build
 from cilium_tpu_torch.kernels.conntrack import _now, ct_probe_core
-from cilium_tpu_torch.kernels.lpm import lpm_walk_prov_core
+from cilium_tpu_torch.kernels.lpm import (LpmDerived, lpm_derive,
+                                          lpm_walk_prov_core)
 
 #: launches of each CUDA kernel since the last ``reset_launches``
 LAUNCHES = {"lpm_lookup_fused": 0, "ct_probe_pair_fused": 0,
@@ -86,11 +92,67 @@ def lpm_lookup_plain(lpm_v4, lpm_v6, addr_words, is_v6, default_index,
                               default_index, v4_only=v4_only)
 
 
+#: (data_ptr, shape) of a trie → (weak reference to it, its ``_version``
+#: when derived, the derived tables, their (cells, runs) pointers). No
+#: device in the key: a device's pointers are unique in the process, and
+#: a hit must be this very tensor.
+_DERIVED: Dict[tuple, Tuple[weakref.ref, int, LpmDerived, tuple]] = {}
+
+
+def _cached(nodes: torch.Tensor):
+    """``nodes``'s cache entry if it is current, else None."""
+    hit = _DERIVED.get((nodes.data_ptr(), nodes.shape))
+    if hit is not None and hit[0]() is nodes and hit[1] == nodes._version:
+        return hit
+    return None
+
+
+def _derive(nodes: torch.Tensor):
+    """Build and cache the derived tables of ``nodes``; → its entry."""
+    key = (nodes.data_ptr(), nodes.shape)
+
+    def drop(ref, key=key):
+        if _DERIVED.get(key, (None,))[0] is ref:
+            del _DERIVED[key]
+    d = lpm_derive(nodes)
+    entry = (weakref.ref(nodes, drop), nodes._version, d,
+             (d.cells.data_ptr(), d.runs.data_ptr()))
+    _DERIVED[key] = entry
+    return entry
+
+
+def lpm_derived(nodes: torch.Tensor) -> LpmDerived:
+    """The derived walk tables of trie ``nodes`` (``kernels/lpm.lpm_derive``,
+    torch ops on its device), built once and cached on the tensor's
+    ``(data_ptr, shape, _version)``: an in-place edit bumps the version and
+    rebuilds them. The entry holds the tensor weakly and is dropped with
+    it, so a new trie at a freed address is never served stale tables. A
+    cache hit costs the host a dict lookup and reads nothing back.
+
+    An edit of a trie must therefore go through a torch in-place op on the
+    tensor itself. Writes that bypass its version counter (through
+    ``.data``, or a kernel writing through ``data_ptr``) are not seen: the
+    walk would go on reading the tables of the trie as it was."""
+    return (_cached(nodes) or _derive(nodes))[2]
+
+
+def _lpm_tables(nodes, name, dev):
+    """(cells, runs) pointers of trie ``nodes``'s derived tables, which the
+    kernel reads in place of the trie (``lpm_derive`` checks the trie's
+    dtype and shape; its tables are contiguous on its device)."""
+    if nodes.device != dev:
+        raise ValueError(f"{name}: expected a tensor on {dev}, got "
+                         f"{nodes.device}")
+    return (_cached(nodes) or _derive(nodes))[3]
+
+
 def lpm_lookup_fused(lpm_v4, lpm_v6, addr_words, is_v6, default_index,
                      v4_only: bool = False):
     """K1 → (identity index [N] int32, packed lpm_prefix provenance [N]
     int32, -1 on miss). ``default_index`` (the world index) is a runtime
-    scalar."""
+    scalar. On the card the kernel walks ``lpm_derived``'s tables of both
+    tries, built on the first call for each trie; a v4-only launch walks
+    ``lpm_v4``'s own planes and derives nothing."""
     if _on_cpu(addr_words):
         return lpm_lookup_plain(lpm_v4, lpm_v6, addr_words, is_v6,
                                 default_index, v4_only)
@@ -102,16 +164,19 @@ def lpm_lookup_fused(lpm_v4, lpm_v6, addr_words, is_v6, default_index,
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     meta = torch.empty((n,), dtype=torch.int32, device=dev)
     if v4_only:
-        v6_ptr, n6, isv6_ptr = None, 0, None
+        planes4 = _ptr(lpm_v4, _I32, (lpm_v4.shape[0], 256, 3), "lpm_v4",
+                       dev)
+        isv6_ptr, tables = None, (None,) * 4
     else:
-        v6_ptr = _ptr(lpm_v6, _I32, None, "lpm_v6", dev)
-        n6 = lpm_v6.shape[0]
+        # the derived tables: freshly allocated, so 16-byte aligned
+        planes4 = None
         isv6_ptr = _ptr(is_v6.contiguous(), _BOOL8, (n,), "is_v6", dev, 1)
+        tables = (*_lpm_tables(lpm_v4, "lpm_v4", dev),
+                  *_lpm_tables(lpm_v6, "lpm_v6", dev))
     _launch("lpm", "lpm_lookup_fused", dev,
             _ptr(addr_words, _I32, (n, 4), "addr_words", dev, 16), isv6_ptr,
-            _ptr(lpm_v4, _I32, None, "lpm_v4", dev), lpm_v4.shape[0],
-            v6_ptr, n6, int(default_index), int(v4_only), n,
-            idx.data_ptr(), meta.data_ptr())
+            planes4, lpm_v4.shape[0], *tables, int(default_index),
+            int(v4_only), n, idx.data_ptr(), meta.data_ptr())
     return idx, meta
 
 

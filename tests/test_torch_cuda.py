@@ -15,8 +15,8 @@ import torch
 
 from cilium_tpu_torch.kernels import fused as fk
 from cilium_tpu_torch.kernels.classify import make_classify_fn
-from cilium_tpu_torch.kernels.edge_cases import (edge_cases, policy_args,
-                                                 probe_args)
+from cilium_tpu_torch.kernels.edge_cases import (edge_cases, lpm_args,
+                                                 policy_args, probe_args)
 from cilium_tpu_torch.kernels.records import unpack_wire, wire_to_torch
 from cilium_tpu_torch.world import make_world
 
@@ -86,7 +86,12 @@ def test_classify_kernel_path_matches_plain_path(device, config):
 
 
 def test_edge_cases_match_plain_versions(device):
-    probe, policy = edge_cases(seed=0)
+    probe, policy, lpm = edge_cases(seed=0)
+    for name, case in lpm.items():
+        args = lpm_args(case, device)
+        for g, w in zip(fk.lpm_lookup_fused(*args),
+                        fk.lpm_lookup_plain(*args)):
+            assert torch.equal(g, w), name
     for name, case in probe.items():
         args = probe_args(case, device)
         for g, w in zip(fk.ct_probe_pair_fused(*args),
@@ -102,7 +107,7 @@ def test_edge_cases_match_plain_versions(device):
 def test_wrappers_refuse_misaligned_inputs(device):
     """K2 reads key words as 8-byte pairs and K3 reads L7 prefixes 16
     bytes at a time; a view that breaks either alignment raises."""
-    probe, policy = edge_cases(seed=0)
+    probe, policy, _lpm = edge_cases(seed=0)
     ct, fwd, rev, now, depth = probe_args(probe["wrap"], device)
     n = fwd.shape[0]
     shifted = torch.empty(n * 10 + 1, dtype=torch.int32,
@@ -117,3 +122,21 @@ def test_wrappers_refuse_misaligned_inputs(device):
     moved.copy_(path)
     with pytest.raises(ValueError, match="aligned"):
         fk.policy_verdict_fused({**tensors, "l7_path": moved}, *rows)
+
+
+def test_lpm_derived_tables_follow_in_place_edits(device):
+    """An in-place edit of a trie on the card rebuilds K1's derived
+    tables: the kernel then sees the edit."""
+    world = make_world("mixed", seed=4, device=device, preset="smoke")
+    b = _batch(world)
+    remote = torch.where((b["direction"] == 0)[:, None], b["dst"], b["src"])
+    v4 = world.tensors["lpm_v4"].clone()
+    largs = (v4, world.tensors["lpm_v6"], remote, b["is_v6"],
+             world.world_index, False)
+    fk.lpm_lookup_fused(*largs)
+    first = fk.lpm_derived(v4)
+    v4[0, :, 1] = 1                  # every v4 address now matches /8
+    v4[0, :, 2] = 8
+    assert fk.lpm_derived(v4) is not first
+    for g, w in zip(fk.lpm_lookup_fused(*largs), fk.lpm_lookup_plain(*largs)):
+        assert torch.equal(g, w)
