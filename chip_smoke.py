@@ -157,6 +157,30 @@ result line):
    ipcache, repeats and replies) through the generator, the port's oracle
    and the classify step on the card one packet a step; all three agree
    on allow, reason, CT status and remote identity.
+19. ddos — cfg6's drop storm (``bench.py``'s ``ddos_bench``) through the
+   port's ``Engine`` → pipeline → ``TorchDatapath`` (kernels on), the CT
+   at Cilium's default ``bpf-ct-global-tcp-max`` (2^19 slots; its bytes
+   from ``ct_layout``), batches of 65,536: 65,536 established legit flows
+   (172.16/16 → web:443, ``_prio`` 0) beside a flood of 4 batches an
+   iteration (40% junk to unknown identities, 60% SYNs from 10/8 to the
+   open port 80, ``_prio`` 1); GC chunks of 2^16, 8 in emergency with a
+   56 s TTL slash; the ladder at 0.8/0.5, up 1 tick, down 4; logical
+   time; the auditor at sampling 1.0. The flood saturates the CT (tail
+   evictions, CT_FULL fails closed), then arrives faster than the worker
+   is let through (``DrainGate``: 3 dispatches an iteration), the ladder
+   climbs to SHED-NEW and the flood is shed at harvest
+   (``shed_new_rows``), held 20 iterations, then recovery. Fails unless
+   ``bench.py``'s gate holds (survival ≥ 0.99, audit checked > 0 with 0
+   mismatched, SHED-NEW reached, peak occupancy ≥ 0.8, < 0.995 at storm
+   end, ≤ 0.5 at the end, evictions, post-storm flows/s ≥ 0.8 of
+   pre-storm, the ledger's forecast before SHED-NEW, its CT row = the
+   gauge, polling < 2% of serving), every dispatch and GC tick equals a
+   plain ``TorchDatapath`` replay (CT included), K1/K2/K3 launched once a
+   dispatch, and the saturated table's insert is the same on the card
+   and the CPU. Prints survival, legit p50/p99, the occupancy
+   trajectory, the ladder's dwell, evictions and CT_FULL, flows/s before,
+   during and after, and K2 at the saturated table (cold, hot, host, its
+   device time on the path, bound).
 
 ``--profile`` adds each main-path phase's device time by op and each
 kernel's device time per launch on the path (``path_ms``).
@@ -3051,6 +3075,687 @@ def phase_goldengen(snap, ipcache, seed, card, report=None):
             f"{len(packets)} steps"]
 
 
+# --------------------------------------------------------------------------- #
+# phase ddos: cfg6's drop storm
+# --------------------------------------------------------------------------- #
+#: cfg6 at each preset (``bench.py:865`` ``ddos_bench``): CT slots, batch
+#: rows, flood batches an iteration (cap/2 rows), iterations held at
+#: SHED-NEW, the iteration cap, and the legit batches of the pre/post
+#: throughput windows and of each of the attestation's four windows. The
+#: full preset sizes the CT to Cilium's default ``bpf-ct-global-tcp-max``
+#: (524,288) and the batch to cfg5's; smoke is the reference's own.
+DDOS = {"full": dict(cap=1 << 19, batch=1 << 16, flood=4, hold=20,
+                     max_iters=120, fps=24, attest=24),
+        "smoke": dict(cap=1 << 13, batch=256, flood=11, hold=8,
+                      max_iters=48, fps=12, attest=12)}
+#: the web endpoint's address (192.168.0.10) as its low word
+DDOS_WEB = 0xC0A8000A
+#: post-storm flows/s must keep this share of pre-storm (``bench.py``'s
+#: own gate asks 1/1.2 of its CPU and TPU runs), each the median of
+#: DDOS_FPS_WINDOWS windows: one window's flows/s on the card spreads by
+#: ±20% with the host's load
+DDOS_POST_RATIO = 0.8
+DDOS_FPS_WINDOWS = 3
+
+
+def ddos_params(smoke):
+    return DDOS["smoke" if smoke else "full"]
+
+
+def ddos_config(smoke):
+    """``bench.py:905-920``'s ``DaemonConfig`` fields for cfg6, the GC
+    chunk at cap/8 as there (both packages take them)."""
+    p = ddos_params(smoke)
+    return dict(ct_capacity=p["cap"], auto_regen=False,
+                batch_size=p["batch"], pipeline_flush_ms=0.5,
+                pipeline_queue_batches=16, pipeline_block_timeout_s=0.05,
+                audit_enabled=True, audit_sample_rate=1.0,
+                audit_pool_batches=64, audit_max_rows=512,
+                flowlog_mode="none", ct_gc_chunk_rows=p["cap"] // 8,
+                ct_gc_emergency_chunks=8, ct_gc_emergency_ttl_slash_s=56,
+                ct_pressure_high=0.8, ct_pressure_low=0.5,
+                overload_up_ticks=1, overload_down_ticks=4,
+                overload_shed_rate_high=15.0, overload_shed_rate_low=2.0,
+                overload_interval_s=0.1)
+
+
+def ddos_world(eng):
+    """cfg6's policy world: legit clients (172.16/16) on 443, port 80 open
+    to 10/8 (the flood's CT filler), ingress enforced."""
+    eng.add_endpoint(["k8s:app=web"], ips=("192.168.0.10",), ep_id=1)
+    eng.apply_policy([
+        {"endpointSelector": {"matchLabels": {"app": "web"}},
+         "ingress": [{"fromCIDR": ["172.16.0.0/16"],
+                      "toPorts": [{"ports": [
+                          {"port": "443", "protocol": "TCP"}]}]}]},
+        {"endpointSelector": {"matchLabels": {"app": "web"}},
+         "ingress": [{"fromCIDR": ["10.0.0.0/8"],
+                      "toPorts": [{"ports": [
+                          {"port": "80", "protocol": "TCP"}]}]}]}])
+    eng.regenerate()
+    return eng
+
+
+def ddos_base(empty_batch, n):
+    b = empty_batch(n)
+    b["src"][:, 2] = 0xFFFF
+    b["dst"][:, 2] = 0xFFFF
+    b["dst"][:, 3] = DDOS_WEB
+    b["proto"][:] = 6
+    b["direction"][:] = 1
+    b["valid"][:] = True
+    return b
+
+
+def ddos_legit(empty_batch, n):
+    """``n`` legit flows 172.16/16 → web:443 with ACK (established, the
+    protected class), ``_prio`` 0: the reference's addresses and ports at
+    its 256 rows; past 64,000 rows a source repeats on another port."""
+    import numpy as np
+    b = ddos_base(empty_batch, n)
+    i = np.arange(n)
+    b["src"][:, 3] = (0xAC100000 + i % 250 + 1
+                      + (((i // 250) % 256) << 8)).astype(np.uint32)
+    b["sport"][:] = 40000 + i % 25536
+    b["dport"][:] = 443
+    b["tcp_flags"][:] = 0x10
+    b["_prio"] = np.zeros((n,), np.int8)
+    return b
+
+
+def ddos_flood(empty_batch, rng, n):
+    """One flood batch, drawn as ``bench.py``'s: 40% junk from 203/8
+    (unknown identities → POLICY drops) to random ports, 60% SYNs from
+    random 10/8 sources to port 80 (allowed: the CT filler); ``_prio``
+    1."""
+    import numpy as np
+    b = ddos_base(empty_batch, n)
+    junk = rng.random(n) < 0.4
+    b["src"][:, 3] = np.where(
+        junk, 0xCB000000 + rng.integers(0, 1 << 20, n),
+        0x0A000000 + rng.integers(1, 1 << 24, n)).astype(np.uint32)
+    b["sport"][:] = rng.integers(1024, 65535, n)
+    b["dport"][:] = np.where(junk, rng.integers(1, 65535, n), 80)
+    b["tcp_flags"][:] = 0x02
+    b["_prio"] = np.ones((n,), np.int8)
+    return b
+
+
+class Harvester:
+    """The shim feeder's role at harvest, as ``bench.py``'s cfg6 plays it:
+    carries the harvest-shed counters the overload controller folds into
+    its shed signal, and receives the ladder's level."""
+
+    def __init__(self):
+        self.prio_shed_rows = self.prio_shed_batches = self.level = 0
+
+    def set_overload_state(self, level):
+        self.level = int(level)
+
+    def stats(self):
+        return {"alive": True, "pending": 0, "pool_free": 0,
+                "prio_shed_rows": self.prio_shed_rows,
+                "prio_shed_batches": self.prio_shed_batches,
+                "overload_level": self.level}
+
+    def stop(self, timeout=0.0):
+        pass
+
+
+class DrainGate:
+    """Paces the pipeline worker's dispatches by wrapping the datapath's
+    ``classify_async``: open, every dispatch passes; shut, each waits for
+    a permit. ``settle`` then waits until the worker waits at the gate
+    with no permit left, or has nothing left to dispatch. So the flood of
+    an ingest-bound storm (one that arrives faster than the device drains
+    it, ``bench.py``'s phase 1b) backs the admission queue up by the same
+    count on every run, whatever the wall clock, and the queue an
+    ``overload_step`` reads is the same too."""
+
+    def __init__(self, dp):
+        import threading
+        self.cond = threading.Condition()
+        self.shut = False
+        self.permits = self.arrived = self.passed = self.waiting = 0
+        self._real = dp.classify_async
+        dp.classify_async = self.classify_async
+
+    def classify_async(self, *args, **kw):
+        with self.cond:
+            self.arrived += 1
+            self.waiting += 1
+            self.cond.notify_all()
+            while self.shut and self.permits == 0:
+                self.cond.wait()
+            self.waiting -= 1
+            if self.shut:
+                self.permits -= 1
+        try:
+            return self._real(*args, **kw)
+        finally:
+            with self.cond:
+                self.passed += 1
+                self.cond.notify_all()
+
+    def set(self, shut, permits=0):
+        with self.cond:
+            self.shut, self.permits = shut, permits
+            self.cond.notify_all()
+
+    def settle(self, admitted, timeout=300.0):
+        """Wait until the worker is parked at the shut gate with no permit
+        left, or all ``admitted`` dispatches have passed; unused permits
+        are taken back."""
+        deadline = time.monotonic() + timeout
+        with self.cond:
+            while True:
+                parked = self.shut and self.permits == 0 and self.waiting
+                if parked or self.passed == self.arrived == admitted:
+                    self.permits = 0
+                    return
+                left = deadline - time.monotonic()
+                check(left > 0, f"ddos: the pipeline worker did not settle "
+                                f"({self.arrived} arrived, {self.passed} "
+                                f"passed, {admitted} admitted)")
+                self.cond.wait(min(left, 0.05))
+
+
+def ddos_storm(eng, pkg, smoke, seed, profile_plateau=None, at_plateau=None,
+               own=None):
+    """``bench.py``'s cfg6 drop storm (``ddos_bench``) on ``eng``, an
+    engine of ``ddos_config`` and ``ddos_world``, in logical time (manual
+    ``overload_step``/``sweep_step``/``resource_step`` ticks). ``pkg``
+    carries the engine's package's ``empty_batch``, ``shed_new_rows`` and
+    ``OVERLOAD_SHED_NEW``.
+
+    Phases: establish the legit population and measure pre-storm flows/s;
+    the ledger-overhead attestation (disarmed/armed windows); 1a, the
+    flood fully served each iteration until the CT has held past
+    ``ct_pressure_high`` for 4 iterations; 1b, the ingest storm: the
+    pipeline worker is let through ``flood // 2 + 1`` dispatches an
+    iteration (``DrainGate``), so the queue backs up, the ladder climbs to
+    SHED-NEW and the flood is then shed at harvest (``shed_new_rows``),
+    held ``hold`` iterations; recovery until level 0 and occupancy <=
+    ``ct_pressure_low``; post-storm flows/s (each throughput the median of
+    ``DDOS_FPS_WINDOWS`` windows). Floods carry no deadline
+    (``bench.py`` gives 1b's 200 ms, a shed that depends on the wall
+    clock), and the overload controller reads its shed rate per logical
+    second (one an iteration). ``profile_plateau(run)`` runs one
+    saturated iteration of 1a (``run``) under a profiler;
+    ``at_plateau(eng, now)`` is called once at the end of 1a with the
+    pipeline drained; ``own(batch)`` sees every batch before it is
+    submitted.
+
+    → a result dict. ``trace`` holds one record an iteration of the
+    wall-clock-free fields (the ladder's level, queue fraction and ct /
+    queue / resource latches, CT occupancy, emergency mode, forecast,
+    flood counts, dispatches; CT and legit counters where the pipeline is
+    drained); latencies, flows/s, the attestation, the ladder's dwell
+    seconds and the audit's counts depend on the wall clock."""
+    import numpy as np
+    p = ddos_params(smoke)
+    cfg = eng.config
+    own = own or (lambda b: b)
+    n, flood = p["batch"], p["flood"]
+    drain_per_iter = flood // 2 + 1
+    harvester = Harvester()
+    eng._feeder = harvester
+    gate = DrainGate(eng.datapath)
+    rng = np.random.default_rng(5 + seed)
+    shed_new = pkg.OVERLOAD_SHED_NEW
+    L = [50_000]
+    admitted = [0]
+    survival = {"rows": 0, "allowed": 0}
+    legit_ms, pending = [], []
+    trace = []
+    counts = {"sent": 0, "dropped": 0, "harvest_shed": 0}
+
+    def overload_tick():
+        # the controller reads sheds per second since its last tick: the
+        # stamp set one second back makes that sheds per logical second
+        eng._overload_shed_t = time.monotonic() - 1.0
+        return eng.overload_step()
+
+    def submit(b, deadline_ms=None):
+        t = eng.submit(own(b), now=L[0], deadline_ms=deadline_ms)
+        if t.dropped:
+            return None
+        admitted[0] += 1
+        return t
+
+    def admitted_dispatches():
+        shed = eng.pipeline_stats()["shed_reasons"]
+        return admitted[0] - sum(shed.values())
+
+    def submit_legit():
+        t0 = time.perf_counter()
+        t = submit(ddos_legit(pkg.empty_batch, n))
+        if t is None:
+            survival["rows"] += n     # a refused batch: 0 allowed
+        else:
+            pending.append((t, t0))
+
+    def pump_legit(block):
+        rest = []
+        for t, t0 in pending:
+            if not block and not t.done():
+                rest.append((t, t0))
+                continue
+            try:
+                out = t.result(timeout=300)
+                survival["allowed"] += int(np.asarray(out["allow"]).sum())
+            except Exception:
+                pass
+            survival["rows"] += n
+            legit_ms.append((time.perf_counter() - t0) * 1e3)
+        pending[:] = rest
+
+    def run_legit(count):
+        for _ in range(count):
+            submit_legit()
+        pump_legit(True)
+
+    def fps_of(count):
+        """Legit flows/s: the median of ``DDOS_FPS_WINDOWS`` windows of
+        ``count`` batches each. → (median, every window's)."""
+        rates = []
+        for _ in range(DDOS_FPS_WINDOWS):
+            t0 = time.perf_counter()
+            run_legit(count)
+            rates.append(count * n / max(time.perf_counter() - t0, 1e-9))
+        return float(np.median(rates)), rates
+
+    ledger = {"mismatches": 0, "forecast_iter": None}
+
+    def poll_ledger(it):
+        row = eng.resource_step(now=float(L[0]))["resources"].get("ct_table")
+        gauge = float(eng.metrics.gauges.get("ct_occupancy", 0.0))
+        if row is None or row["pressure"] != gauge:
+            ledger["mismatches"] += 1
+        if ledger["forecast_iter"] is None and row is not None \
+                and row["forecast"]:
+            ledger["forecast_iter"] = it
+        return bool(row and row["forecast"])
+
+    def record(phase, it, st, drained):
+        occ = float(eng.metrics.gauges.get("ct_occupancy", 0.0))
+        rec = {"phase": phase, "it": it, "now": L[0], "level": st["level"],
+               "queue_frac": st["inputs"]["queue_frac"],
+               "lit": st["lit"],
+               "ct_occupancy": occ, "emergency": bool(eng._ct_emergency),
+               "forecast": poll_ledger(it), "dispatches": gate.passed,
+               **counts}
+        if drained:
+            rec.update(evicted=eng.metrics.ct_evicted,
+                       ct_full=eng.metrics.insert_fail,
+                       legit_rows=survival["rows"],
+                       legit_allowed=survival["allowed"])
+        trace.append(rec)
+        return occ
+
+    # phase 0: establish the legit flows, pre-storm flows/s
+    run_legit(2)
+    L[0] += 1
+    run_legit(2)
+    legit_ms.clear()
+    pre_fps, pre_windows = fps_of(p["fps"])
+    overload_tick()
+
+    # the ledger-overhead attestation (bench.py's D/A/D/A windows)
+    att = {"off": [], "on": []}
+    poll_s = armed_s = 0.0
+    for mode in ("off", "on", "off", "on"):
+        t0 = time.perf_counter()
+        for i in range(p["attest"]):
+            run_legit(1)
+            if mode == "on" and i % 12 == 11:
+                p0 = time.perf_counter()
+                eng.resource_step(now=float(L[0]))
+                poll_s += time.perf_counter() - p0
+        dt = max(time.perf_counter() - t0, 1e-9)
+        att[mode].append(p["attest"] * n / dt)
+        if mode == "on":
+            armed_s += dt
+    overhead_pct = 100.0 * poll_s / max(armed_s, 1e-9)
+    attestation = {"fps_disarmed": float(np.mean(att["off"])),
+                   "fps_armed": float(np.mean(att["on"])),
+                   "poll_s": poll_s, "armed_serving_s": armed_s,
+                   "overhead_pct": overhead_pct, "budget_pct": 2.0,
+                   "ok": overhead_pct < 2.0}
+    legit_ms.clear()
+
+    # 1a: the flood fully served each iteration until the table saturates
+    max_level = it = sat_hold = 0
+    storm_t0 = time.perf_counter()
+    storm_rows = 0
+    profiled = None
+
+    def one_1a():
+        for _ in range(flood):
+            if submit(ddos_flood(pkg.empty_batch, rng, n), 0) is None:
+                counts["dropped"] += 1
+            else:
+                counts["sent"] += 1
+        run_legit(1)
+
+    while it < p["max_iters"] // 2 and sat_hold < 4:
+        it += 1
+        L[0] += 1
+        if profile_plateau is not None and profiled is None and sat_hold:
+            profiled = profile_plateau(one_1a)
+        else:
+            one_1a()
+        storm_rows += (flood + 1) * n
+        st = overload_tick()
+        max_level = max(max_level, st["level"])
+        eng.sweep_step(now=L[0])
+        eng.audit_step(budget=16)
+        if record("1a", it, st, True) >= cfg.ct_pressure_high:
+            sat_hold += 1
+    check(eng.drain(timeout=300), "ddos: the pipeline did not drain")
+    if at_plateau is not None:
+        at_plateau(eng, L[0])
+
+    # 1b: the ingest storm, the worker let through drain_per_iter
+    # dispatches an iteration
+    shed_new_iters = 0
+    shed_new_iter = None
+    gate.set(shut=True)
+    while it < p["max_iters"] and shed_new_iters < p["hold"]:
+        it += 1
+        L[0] += 1
+        level = harvester.level
+        max_level = max(max_level, level)
+        for _ in range(flood):
+            fb = ddos_flood(pkg.empty_batch, rng, n)
+            storm_rows += n
+            if level >= shed_new:
+                shed = pkg.shed_new_rows(fb)
+                harvester.prio_shed_rows += shed
+                harvester.prio_shed_batches += 1
+                counts["harvest_shed"] += shed
+                continue
+            if submit(fb) is None:
+                counts["dropped"] += 1
+            else:
+                counts["sent"] += 1
+        submit_legit()
+        storm_rows += n
+        gate.settle(admitted_dispatches())
+        st = overload_tick()
+        if st["level"] >= shed_new:
+            shed_new_iters += 1
+            if shed_new_iter is None:
+                shed_new_iter = it
+        gate.set(shut=True, permits=drain_per_iter)
+        gate.settle(admitted_dispatches())
+        pump_legit(False)
+        eng.sweep_step(now=L[0])
+        eng.audit_step(budget=16)
+        record("1b", it, st, False)
+    gate.set(shut=False)
+    check(eng.drain(timeout=300), "ddos: the pipeline did not drain")
+    pump_legit(True)
+    storm_s = max(time.perf_counter() - storm_t0, 1e-9)
+    occ_all = [r["ct_occupancy"] for r in trace]
+    occ_peak, occ_late = max(occ_all), occ_all[-1]
+    trace.append({"phase": "1b-end", "it": it, "now": L[0],
+                  "evicted": eng.metrics.ct_evicted,
+                  "ct_full": eng.metrics.insert_fail,
+                  "legit_rows": survival["rows"],
+                  "legit_allowed": survival["allowed"],
+                  "dispatches": gate.passed, **counts})
+
+    # recovery
+    for _ in range(80):
+        L[0] += 2
+        run_legit(1)
+        st = overload_tick()
+        eng.sweep_step(now=L[0])
+        it += 1
+        occ = record("recover", it, st, True)
+        if st["level"] == 0 and occ <= cfg.ct_pressure_low:
+            break
+    occ_final = float(eng.metrics.gauges.get("ct_occupancy", 0.0))
+    post_fps, post_windows = fps_of(p["fps"])
+    ladder = eng.overload_status() or {}
+    check(eng.drain(timeout=300), "ddos: the pipeline did not drain")
+    for _ in range(200):
+        step = eng.audit_step(budget=128)
+        if not step or not (step.get("replayed") or step.get("pending")):
+            break
+    eng._feeder = None
+    levels = [r["level"] for r in trace if "level" in r]
+    return {
+        "trace": trace, "iterations": it, "shed_new_iter": shed_new_iter,
+        "forecast_iter": ledger["forecast_iter"],
+        "ct_track_mismatches": ledger["mismatches"],
+        "survival": survival["allowed"] / max(1, survival["rows"]),
+        "legit_rows": survival["rows"], "legit_ms": legit_ms,
+        "max_level": max_level, "occ_peak": occ_peak, "occ_late": occ_late,
+        "occ_final": occ_final, "occ_trajectory": occ_all,
+        "evicted": eng.metrics.ct_evicted,
+        "ct_full": eng.metrics.insert_fail, "audit": eng.auditor.stats(),
+        "pre_fps": pre_fps, "storm_fps": storm_rows / storm_s,
+        "post_fps": post_fps, "fps_windows": (pre_windows, post_windows),
+        "attestation": attestation,
+        "dwell_iters": {lv: levels.count(lv) for lv in sorted(set(levels))},
+        "dwell_s": ladder.get("dwell_s"), "dispatches": gate.passed,
+        "drain_per_iter": drain_per_iter, "profiled": profiled, **counts}
+
+
+def ddos_gate(res, cfg, shed_new):
+    """``bench.py:1241-1283``'s cfg6 gate, the post-storm share at
+    ``DDOS_POST_RATIO``. → the reasons it fails."""
+    why = []
+    if res["survival"] < 0.99:
+        why.append(f"established-flow survival {res['survival']:.4f} < 0.99")
+    if res["audit"]["mismatched_rows"] or not res["audit"]["checked_rows"]:
+        why.append(f"audit {res['audit']}")
+    if res["max_level"] < shed_new:
+        why.append(f"ladder never reached SHED-NEW (max {res['max_level']})")
+    if res["occ_peak"] < cfg.ct_pressure_high:
+        why.append(f"peak occupancy {res['occ_peak']} < "
+                   f"{cfg.ct_pressure_high}")
+    if res["occ_late"] >= 0.995:
+        why.append(f"occupancy at storm end {res['occ_late']} >= 0.995")
+    if res["occ_final"] > cfg.ct_pressure_low:
+        why.append(f"final occupancy {res['occ_final']} > "
+                   f"{cfg.ct_pressure_low}")
+    if not res["evicted"]:
+        why.append("no CT tail-evictions")
+    ratio = res["post_fps"] / max(res["pre_fps"], 1e-9)
+    if ratio < DDOS_POST_RATIO:
+        why.append(f"post-storm flows/s {res['post_fps']:.0f} vs pre-storm "
+                   f"{res['pre_fps']:.0f} (ratio {ratio:.3f} < "
+                   f"{DDOS_POST_RATIO})")
+    if res["ct_track_mismatches"]:
+        why.append(f"ct_table row != ct_occupancy on "
+                   f"{res['ct_track_mismatches']} polls")
+    fi, si = res["forecast_iter"], res["shed_new_iter"]
+    if fi is None or (si is not None and fi >= si):
+        why.append(f"forecast at iteration {fi}, SHED-NEW at {si}")
+    if not res["attestation"]["ok"]:
+        why.append(f"ledger polling {res['attestation']['overhead_pct']:.2f}"
+                   f"% > 2% of armed serving time")
+    return why
+
+
+def phase_ddos(seed, card, report=None):
+    """cfg6's drop storm through the port's ``Engine`` → pipeline →
+    ``TorchDatapath`` on the card (``ddos_storm``), the CT at Cilium's
+    default size: the reference's gate, every dispatch and GC tick
+    replayed on a plain datapath, K1/K2/K3 launched once a dispatch, and
+    K2 timed at the saturated table. → phase lines."""
+    import numpy as np
+    import torch
+    from types import SimpleNamespace
+
+    from cilium_tpu_torch.compile.ct_layout import CT_FIELDS, KEY_WORDS
+    from cilium_tpu_torch.kernels import fused as fk
+    from cilium_tpu_torch.kernels.conntrack import (ct_insert_new,
+                                                    ct_key_words_pair,
+                                                    reverse_key_words)
+    from cilium_tpu_torch.kernels.records import batch_to_torch, empty_batch
+    from cilium_tpu_torch.pipeline.guard import OVERLOAD_SHED_NEW
+    from cilium_tpu_torch.runtime import DaemonConfig, Engine
+    from cilium_tpu_torch.runtime.datapath import TorchDatapath
+    from cilium_tpu_torch.shim.feeder import shed_new_rows
+
+    smoke = PRESET == "smoke"
+    p = ddos_params(smoke)
+    cfg = DaemonConfig(device=DEVICE, **ddos_config(smoke))
+    eng = ddos_world(Engine(cfg, datapath=TorchDatapath(cfg)))
+    ct_bytes = cfg.ct_capacity * (KEY_WORDS + len(CT_FIELDS) - 1) * 4
+    lines = [f"ddos: cfg6 at CT {cfg.ct_capacity} slots ({ct_bytes} bytes: "
+             f"{KEY_WORDS} key words and {len(CT_FIELDS) - 1} words a slot, "
+             f"ct_layout), batch {cfg.batch_size}, {p['flood']} flood "
+             f"batches an iteration, GC chunk {cfg.ct_gc_chunk_rows} x "
+             f"{cfg.ct_gc_emergency_chunks} in emergency, TTL slash "
+             f"{cfg.ct_gc_emergency_ttl_slash_s} s"]
+    dp = eng.datapath
+    log = DispatchLog(dp)
+    pkg = SimpleNamespace(empty_batch=empty_batch,
+                          shed_new_rows=shed_new_rows,
+                          OVERLOAD_SHED_NEW=OVERLOAD_SHED_NEW)
+    sym = KERNELS["ct_probe_pair_fused"][2]
+    plateau = {}
+
+    def profile_plateau(run):
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if DEVICE == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ops = [e for e in prof.key_averages()
+               if e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in ops) / 1e6
+        return kernel_device_ms(ops, sym) + (busy / wall,)
+
+    def at_plateau(e, now):
+        plateau["ct"] = {k: v.clone() for k, v in e.datapath._cts[0].items()}
+        plateau["occ"] = float(e.metrics.gauges.get("ct_occupancy", 0.0))
+        plateau["now"] = now
+
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    res = ddos_storm(eng, pkg, smoke, seed, profile_plateau, at_plateau,
+                     own=log.own)
+    storm_s = time.perf_counter() - t0
+    launches = dict(fk.LAUNCHES)
+    dispatched = log.steps()
+    check(dispatched == res["dispatches"],
+          f"ddos: {dispatched} dispatches logged, {res['dispatches']} "
+          f"through the gate")
+    for name, k in launches.items():
+        check(k == dispatched, f"ddos: {name} launched {k} times for "
+                               f"{dispatched} dispatches")
+    why = ddos_gate(res, cfg, OVERLOAD_SHED_NEW)
+    check(not why, f"ddos: the cfg6 gate failed: {why}")
+
+    # K2 at the saturated table: flood keys, a table at the plateau
+    rng = np.random.default_rng(seed + 7)
+    fb = ddos_flood(empty_batch, rng, p["batch"])
+    fwd = ct_key_words_pair(batch_to_torch(fb, DEVICE))[0]
+    rev = reverse_key_words(fwd)
+    ct, now = plateau["ct"], plateau["now"]
+    pargs = (ct, fwd, rev, now, 8)
+    got = fk.ct_probe_pair_fused(*pargs)
+    want = fk.ct_probe_pair_plain(*pargs)
+    err = max_abs_err(got, want)
+    check(err == 0, f"ddos: K2 at the saturated table != plain (err {err})")
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device=DEVICE)
+    cold = device_ms(lambda: fk.ct_probe_pair_fused(*pargs), sym, 20, flush)
+    hot = device_ms(lambda: fk.ct_probe_pair_fused(*pargs), sym, 50)
+    host = host_ms(lambda: fk.ct_probe_pair_fused(*pargs))
+    plain_ms = cuda_ms(lambda: fk.ct_probe_pair_plain(*pargs), 10)
+    nbytes = ct_probe_bytes(ct, fwd, rev, now, 8)
+    path_n, path_ms, busy = res.get("profiled") or (0, None, None)
+    del flush
+    entry = dict(max_abs_err=err, ms=cold, hot_ms=hot, host_ms=host,
+                 path_ms=path_ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms(nbytes), occupancy=plateau["occ"])
+    if report is not None:
+        report["ct_probe_pair_fused"]["cfg6_saturated"] = entry
+        note_launches(report, "ddos", launches)
+    hits = int((got[0] >= 0).sum())
+
+    # the eviction round under the heaviest contention: the flood batch's
+    # insert into the saturated table, on the card and on the CPU
+    ins = [ct_insert_new({k: v.to(dev) for k, v in ct.items()}, fwd.to(dev),
+                         torch.ones(fwd.shape[0], dtype=torch.bool,
+                                    device=dev), now, 8, evict=True)
+           for dev in (DEVICE, "cpu")]
+    for name, a, b in zip(("new_keys", "new_created", "zero_mask", "slot",
+                           "fail", "n_evicted"), *ins):
+        check(torch.equal(a.cpu(), b), f"ddos: the saturated insert's {name}"
+                                       f" differs between {DEVICE} and cpu")
+    evicted_now, failed_now = int(ins[1][5]), int(ins[1][4].sum())
+    del ins
+
+    # every dispatch and GC tick against the plain path, then the CT
+    t1 = time.perf_counter()
+    plain, n_steps, n_gc = replay_plain(log, cfg)
+    want_ct, got_ct = eng.ct_arrays(), plain.ct_arrays()
+    for k in want_ct:
+        check(np.array_equal(want_ct[k], got_ct[k]),
+              f"ddos: CT {k} differs from the plain path")
+    replay_s = time.perf_counter() - t1
+    eng.stop()
+
+    r = res
+    lat = np.asarray(r["legit_ms"]) if r["legit_ms"] else np.zeros(1)
+    traj = r["occ_trajectory"]
+    names = ("ok", "pressure", "overload", "shed-new")
+    return lines + [
+        f"ddos: {r['iterations']} iterations in {storm_s:.3f} s; survival "
+        f"{r['survival']:.6f} of {r['legit_rows']} legit rows; legit p50 "
+        f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} "
+        f"ms [{card}]",
+        f"ddos: occupancy peak {r['occ_peak']:.6f}, at storm end "
+        f"{r['occ_late']:.6f}, final {r['occ_final']:.6f}; trajectory "
+        f"(every 4th) {[round(x, 4) for x in traj[::4]]} [{card}]",
+        f"ddos: ladder max level {r['max_level']}, SHED-NEW at iteration "
+        f"{r['shed_new_iter']}, forecast at {r['forecast_iter']}; dwell "
+        f"iterations " + json.dumps({names[k]: v for k, v in
+                                     r['dwell_iters'].items()}) +
+        f", dwell s {json.dumps(r['dwell_s'])} [{card}]",
+        f"ddos: evicted {r['evicted']}, CT_FULL {r['ct_full']}; flood "
+        f"sent {r['sent']}, refused {r['dropped']}, shed at harvest "
+        f"{r['harvest_shed']} rows; the worker let through "
+        f"{r['drain_per_iter']} dispatches an ingest-storm iteration "
+        f"[{card}]",
+        f"ddos: flows/s pre-storm {r['pre_fps']:.0f} (windows "
+        f"{[round(x) for x in r['fps_windows'][0]]}), storm "
+        f"{r['storm_fps']:.0f}, post-storm {r['post_fps']:.0f} (windows "
+        f"{[round(x) for x in r['fps_windows'][1]]}; ratio "
+        f"{r['post_fps'] / max(r['pre_fps'], 1e-9):.4f}); attestation "
+        f"{json.dumps(r['attestation'])} [{card}]",
+        f"ddos: audit {json.dumps(r['audit'])}",
+        f"ddos: K2 at the saturated table (occupancy {plateau['occ']:.4f},"
+        f" {hits} of {fwd.shape[0]} flood keys hit) exact, ms={cold:.6f} "
+        f"hot_ms={hot:.6f} host_ms={host:.6f} path_ms="
+        f"{path_ms if path_ms is None else round(path_ms, 6)} "
+        f"({path_n} launches profiled, device busy "
+        f"{busy if busy is None else round(busy, 4)}) plain_ms="
+        f"{plain_ms:.6f} bytes={nbytes} bound_ms={bound_ms(nbytes):.6f} "
+        f"[{card}]",
+        f"ddos: the same flood batch's insert into that table (evicting): "
+        f"{evicted_now} evictions, {failed_now} CT_FULL; slots, fails, keys "
+        f"and stamps equal on {DEVICE} and on the CPU",
+        f"ddos: {n_steps} dispatches and {n_gc} GC ticks replayed on a "
+        f"plain TorchDatapath in {replay_s:.3f} s: every out column, "
+        f"counter, GC result and the CT arrays equal",
+        f"ddos launches: {json.dumps(launches)} for {dispatched} "
+        f"dispatches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3163,6 +3868,10 @@ def main(argv=None) -> int:
                                     report):
             print(f"phase {line}", flush=True)
         del snap, ipcache
+
+        phase = "ddos"
+        for line in phase_ddos(args.seed, card, report):
+            print(f"phase {line}", flush=True)
         torch.cuda.synchronize()
     except Exception as e:        # every phase failure ends the run
         print(f"chip_smoke: phase {phase} failed: {type(e).__name__}: {e}",

@@ -11,6 +11,8 @@ they are dropped:
   the package;
 - ``trace``: the span tracer's stats; the tracer is process-global, and
   other test files on the same worker reconfigure it (its capacity);
+- status's ``Tracing:`` line in the CLI's text output, which prints the
+  ``trace`` document;
 - ``fused_kernels``: each datapath's kernel selector (the JAX engine's
   Pallas selector, the port's CUDA one, which adds each kernel's launch
   count to the reference's three keys); equal on the fakes (``None``)
@@ -225,6 +227,18 @@ def run_cli(side, argv):
         env={**os.environ, "JAX_PLATFORMS": "cpu"})
 
 
+#: the lines of a CLI's text output that print a ``TIMING`` key: status's
+#: ``Tracing:`` line is the ``trace`` document (the process-global span
+#: tracer's stats), printed once a tracer in the serving process is on
+TIMED_LINES = ("Tracing:",)
+
+
+def cli_untimed(stdout):
+    """A CLI's text output without its ``TIMED_LINES``."""
+    return "".join(line for line in stdout.splitlines(keepends=True)
+                   if not line.startswith(TIMED_LINES))
+
+
 class TestCLILive:
     def test_cli_live_commands(self, live):
         """Each live command of ``test_api.py`` through both CLIs against
@@ -242,11 +256,32 @@ class TestCLILive:
                     for s in SIDES}
             assert outs["jax"].returncode == outs["torch"].returncode == 0, \
                 (argv, outs["torch"].stderr)
-            assert outs["jax"].stdout == outs["torch"].stdout, argv
+            assert cli_untimed(outs["jax"].stdout) == \
+                cli_untimed(outs["torch"].stdout), argv
         out = run_cli("torch", ["metrics", "--api", socks["torch"]])
         assert out.returncode == 0 and "policy_revision" in out.stdout
         assert "Endpoints:        2" in run_cli(
             "torch", ["status", "--api", socks["torch"]]).stdout
+
+    def test_status_prints_the_process_tracer(self, live):
+        """The field that differed under load: an earlier test on the same
+        worker that leaves the JAX package's process-global ``TRACER`` on
+        (``test_fused.py``'s ``trace_sample_rate=1.0`` engine) makes the
+        JAX server's ``status`` print a ``Tracing:`` line the port's
+        server does not. Only that line differs."""
+        from cilium_tpu.observe.trace import TRACER
+        socks = {s: live[s][0].config.api_socket for s in SIDES}
+        TRACER.configure(sample_rate=1.0)
+        try:
+            outs = {s: run_cli(s, ["status", "--api", socks[s]]).stdout
+                    for s in SIDES}
+        finally:
+            TRACER.configure(sample_rate=0.0)
+            TRACER.reset()
+        assert outs["jax"] != outs["torch"]
+        diff = set(outs["jax"].splitlines()) ^ set(outs["torch"].splitlines())
+        assert [line.split()[0] for line in diff] == ["Tracing:"], diff
+        assert cli_untimed(outs["jax"]) == cli_untimed(outs["torch"])
 
     def test_cli_requires_a_source(self):
         for side in SIDES:

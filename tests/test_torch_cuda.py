@@ -8,7 +8,7 @@ skipped without a CUDA device; on a machine with one::
 port's machine need not have. ``chip_smoke.py`` runs the same checks at
 full width. The edge cases of ``kernels/edge_cases.py`` run here as they
 do in ``chip_smoke.py``, and so do its phases tenants, fqdn, cluster,
-chaos and goldengen, at the smoke preset and shortened.
+chaos, goldengen and ddos, at the smoke preset and shortened.
 """
 
 import pytest
@@ -397,3 +397,8 @@ def test_phase_goldengen_on_the_card(smoke):
     eng.stop()
     lines = smoke.phase_goldengen(snap, ipcache, 0, "test")
     assert lines[-1].startswith("goldengen launches")
+
+
+def test_phase_ddos_on_the_card(smoke):
+    lines = smoke.phase_ddos(0, "test")
+    assert lines[-1].startswith("ddos launches")
