@@ -82,13 +82,22 @@ result line):
    (c) ``tests/test_lb.py``'s service world (DNAT, rev-NAT, NO_SERVICE),
    (d) ``tests/test_parity.py``'s world with enforcement never and always,
    and 40 batches of one against the sequential oracle; each part on a
-   fresh CT. Every row's allow, reason, status, remote identity, matched
-   rule, LPM prefix and CT state (and (c)'s LB columns) and, after every
-   batch, every live CT entry slot for slot (key, flags, expiry,
-   counters, rev-NAT) must equal the oracle's; any mismatch fails the
-   run. Prints a line a part: rows, batches and live entries compared,
-   the oracle's host seconds, the step's host and CUDA-event ms, each
-   kernel's launches;
+   fresh CT; (e) cfg5 at CT_FULL: cfg6's table (Cilium's default
+   ``bpf-ct-global-tcp-max``, 2^19 slots) seeded on both sides from one
+   image of established flows at 96% occupancy, then 6 batches of 65,536
+   (a SYN flood, data and replies of the seeded flows, new legit flows),
+   the last two after a jump past the SYN lifetime and the last after a
+   whole-table ``ct_sweep_chunk`` pass; it fails unless every check
+   before the sweep finds ≥ 95% live, ≥ 10,000 rows drop CT_FULL and
+   ≥ 10,000 live entries are tail-evicted. Every row's allow, reason,
+   status, remote identity, matched rule, LPM prefix and CT state (and
+   (c)'s LB columns), each batch's per-reason × direction,
+   ``insert_fail`` and ``ct_evicted`` counters and, after every batch,
+   every live CT entry slot for slot (key, flags, expiry, counters,
+   rev-NAT) must equal the oracle's; any mismatch fails the run. Prints a
+   line a part: rows, batches and live entries compared, the oracle's
+   host seconds, the step's host and CUDA-event ms, each kernel's
+   launches;
 10. cfg3    — 100,000 v4 prefixes, CT 2^18: churn batches of 65,536 Zipf
    destinations, two held against the plain path;
 11. serve   — cfg5 at full width built through the port's engine API
@@ -993,9 +1002,20 @@ def phase_cfg3(world, card, report, profile=False):
 #: of a batch each keeps and part (a)'s CT slots (a rehearsal's reference
 #: oracle scans every rule and prefix for each row)
 PARITY = {"full": dict(cfg5=6, mixed=6, cfg5_rows=None, mixed_rows=None,
-                      cfg5_cap=None),
+                      cfg5_cap=None,
+                      ctfull=dict(cap=1 << 19, rows=1 << 16, batches=6,
+                                  min_full=10_000, min_evicted=10_000)),
           "smoke": dict(cfg5=4, mixed=4, cfg5_rows=512, mixed_rows=128,
-                        cfg5_cap=1 << 12)}
+                        cfg5_cap=1 << 12,
+                        ctfull=dict(cap=1 << 12, rows=512, batches=6,
+                                    min_full=1000, min_evicted=64))}
+#: part (e): the share of the table the seeded established flows fill, the
+#: least live share at every check before the sweep, the seed of its flows
+#: and the clock of its first batch
+CTFULL_FILL = 0.96
+CTFULL_MIN_OCC = 0.95
+CTFULL_SEED = 0
+CTFULL_T0 = 1000
 #: the columns ``tests/test_parity.run_parity`` holds against the oracle
 PARITY_COLS = ("allow", "reason", "status", "remote_identity",
                "matched_rule", "lpm_prefix", "ct_state_pre")
@@ -1266,22 +1286,32 @@ def lb_mismatches(out, verdicts):
 def oracle_live(oracle, now):
     """The oracle's live CT entries (expiry > now) as arrays in slot
     order: (slots, key words [n, 10] uint32, {column: values})."""
+    import itertools
+    import operator
+
     import numpy as np
-    items = sorted(((e.slot, k, e) for k, e in oracle.ct.entries.items()
-                    if e.expiry > now), key=lambda t: t[0])
-    n = len(items)
+    live = [(k, e) for k, e in oracle.ct.entries.items() if e.expiry > now]
+    n = len(live)
     keys = np.zeros((n, 10), dtype=np.uint32)
+    vals = np.zeros((n, len(PARITY_CT) + 1), dtype=np.int64)
     if n:
-        keys[:, 0:4] = np.frombuffer(b"".join(k[0] for _s, k, _e in items),
+        ks, es = zip(*live)
+        keys[:, 0:4] = np.frombuffer(b"".join(map(operator.itemgetter(0), ks)),
                                      ">u4").reshape(n, 4)
-        keys[:, 4:8] = np.frombuffer(b"".join(k[1] for _s, k, _e in items),
+        keys[:, 4:8] = np.frombuffer(b"".join(map(operator.itemgetter(1), ks)),
                                      ">u4").reshape(n, 4)
-        keys[:, 8] = [((k[2] << 16) | k[3]) & 0xFFFFFFFF
-                      for _s, k, _e in items]
-        keys[:, 9] = [(k[4] << 8) | k[5] for _s, k, _e in items]
-    cols = {c: np.array([getattr(e, c) for _s, _k, e in items],
-                        dtype=np.int64) for c in PARITY_CT}
-    return np.array([s for s, _k, _e in items], dtype=np.int64), keys, cols
+        ports = np.fromiter(itertools.chain.from_iterable(
+            map(operator.itemgetter(2, 3, 4, 5), ks)), np.int64,
+            4 * n).reshape(n, 4)
+        keys[:, 8] = ((ports[:, 0] << 16) | ports[:, 1]) & 0xFFFFFFFF
+        keys[:, 9] = (ports[:, 2] << 8) | ports[:, 3]
+        vals[:] = np.fromiter(itertools.chain.from_iterable(
+            map(operator.attrgetter("slot", *PARITY_CT), es)), np.int64,
+            vals.size).reshape(vals.shape)
+    order = np.argsort(vals[:, 0], kind="stable")
+    keys, vals = keys[order], vals[order]
+    return (vals[:, 0], keys,
+            {c: vals[:, 1 + j] for j, c in enumerate(PARITY_CT)})
 
 
 def device_live(ct, now):
@@ -1320,15 +1350,19 @@ def ct_mismatches(dev, ora):
 
 
 def parity_part(label, snap, m, step, live, make_batch, cap,
-                lb=False, sequential=False):
+                lb=False, sequential=False, image=None, sweep=None):
     """Classify the batches ``make_batch(k, last)`` gives (None ends the
     run; ``last`` holds the previous batch, its records and the oracle's
-    verdicts) with ``step(batch, now) → (out, host_ms, cuda_ms)``, and
-    each one with ``m``'s oracle over the same snapshot (snapshot batch
-    mode, or one packet at a time with ``sequential``), on a bounded CT of
-    ``cap`` slots and the device's probe depth: every row's
-    ``PARITY_COLS`` (and with ``lb`` its LB columns) and, after every
-    batch, every live CT entry (``live(now)``) must be equal. Any
+    verdicts) with ``step(batch, now) → (out, host_ms, cuda_ms,
+    counters)``, and each one with ``m``'s oracle over the same snapshot
+    (snapshot batch mode, or one packet at a time with ``sequential``), on
+    a bounded CT of ``cap`` slots and the device's probe depth: every
+    row's ``PARITY_COLS`` (and with ``lb`` its LB columns), the step's
+    counters and, after every batch, every live CT entry (``live(now)``)
+    must be equal. ``image`` (``ctfull_image``, already in the device's
+    CT) seeds the oracle's table; with ``sweep`` = (k, ``fn``) a
+    whole-table GC pass ``fn(now) → (reclaimed, live)`` runs on the device
+    before batch ``k``, and the oracle's ``sweep`` beside it. Any
     difference raises. → the run's counts and the batches it ran."""
     import itertools
     from types import SimpleNamespace
@@ -1336,21 +1370,34 @@ def parity_part(label, snap, m, step, live, make_batch, cap,
     import numpy as np
     oracle = m.oracle.Oracle.for_snapshot(
         snap, m.oracle.ConntrackTable(capacity=cap, probe_depth=8))
+    if image is not None:
+        ctfull_install(m, oracle.ct, image)
     res = SimpleNamespace(label=label, batches=[], rows=0, ct_entries=0,
                           oracle_s=0.0, host_ms=[], cuda_ms=[], reused=0,
-                          expired=0)
+                          expired=0, ct_full=0, evicted=0, occupancy=[],
+                          swept=None)
     last, prev_live = None, None
     for k in itertools.count():
         nxt = make_batch(k, last)
         if nxt is None:
             break
         b, now = nxt
+        if sweep is not None and k == sweep[0]:
+            reclaimed, n_live = sweep[1](now)
+            want_live = sum(e.expiry > now
+                            for e in oracle.ct.entries.values())
+            oracle.ct.sweep(now)
+            check(n_live == want_live,
+                  f"parity {label}: the sweep at {now} counts {n_live} "
+                  f"live entries, the oracle {want_live}")
+            res.swept = (reclaimed, n_live)
         recs = batch_records(b, snap.ep_ids, m.oracle.PacketRecord)
+        fails0, evicted0 = oracle.ct.insert_fail, oracle.ct.evicted
         t0 = time.perf_counter()
         want = ([oracle.classify(p, now) for p in recs] if sequential
                 else oracle.classify_batch_snapshot(recs, now))
         res.oracle_s += time.perf_counter() - t0
-        out, host, cuda = step(b, now)
+        out, host, cuda, cnt = step(b, now)
         res.host_ms.append(host)
         res.cuda_ms.append(cuda)
         wcols = verdict_columns(want)
@@ -1361,6 +1408,9 @@ def parity_part(label, snap, m, step, live, make_batch, cap,
                     for i in np.nonzero(got != wcols[c])[0]]
         if lb:
             bad += lb_mismatches(out, want)
+        bad += counter_mismatches(cnt, wcols, b["direction"],
+                                  oracle.ct.insert_fail - fails0,
+                                  oracle.ct.evicted - evicted0, m.C)
         dev = live(now)
         bad += ct_mismatches(dev, oracle_live(oracle, now))
         check(not bad, f"parity {label} batch {k} (now {now}): "
@@ -1368,16 +1418,20 @@ def parity_part(label, snap, m, step, live, make_batch, cap,
         if prev_live is not None:
             # slots live before this batch that now hold another flow, and
             # entries that expired between the two batches' clocks
-            was = dict(zip(prev_live[0].tolist(),
-                           map(bytes, prev_live[1])))
-            res.reused += sum(1 for s, key in zip(dev[0].tolist(), dev[1])
-                              if s in was and was[s] != bytes(key))
+            _s, i_was, i_now = np.intersect1d(prev_live[0], dev[0],
+                                              assume_unique=True,
+                                              return_indices=True)
+            res.reused += int((prev_live[1][i_was] != dev[1][i_now])
+                              .any(axis=1).sum())
             res.expired += int((prev_live[2]["expiry"] <= now).sum())
         prev_live = dev
         res.batches.append((b, now))
         res.rows += len(recs)
         res.ct_entries += int(dev[0].size)
+        res.ct_full += int((wcols["reason"] == m.C.DropReason.CT_FULL).sum())
+        res.occupancy.append(dev[0].size / cap)
         last = SimpleNamespace(batch=b, records=recs, verdicts=want)
+    res.evicted = oracle.ct.evicted
     return res
 
 
@@ -1528,12 +1582,221 @@ def small_parity_batches(m, ep_slot_of, seed, n, rows, now0, step):
     return make
 
 
+def cfg5_open_port(pod, rng, smoke):
+    """A TCP port of pod ``p{pod}``'s own cfg5 rules, drawn from ``rng``."""
+    from cilium_tpu_torch.world import cfg5_sizes
+    n_ids, n_rules = cfg5_sizes(smoke)[:2]
+    k = rng.integers(0, max(1, n_rules // n_ids), len(pod))
+    return 1024 + (pod + n_ids * k) % 25000
+
+
+def ctfull_image(cap, seed, smoke, fill=CTFULL_FILL, probe_depth=8):
+    """Part (e)'s seeded table: established TCP flows of cfg5 (pod → web on
+    a port of the pod's own rules, direction ingress), each as its SYN and
+    then an ACK at ``CTFULL_T0`` leave it (SEEN_NON_SYN, so not evictable;
+    two forward packets), placed one flow at a time in the first free slot
+    of its probe window, as the sequential oracle places them, until
+    ``fill`` of the ``cap`` slots hold one. A repeated flow is passed over,
+    and so is one whose window is full. → namespace: ``ct`` (the CT arrays
+    as uint32 numpy), ``flows`` (the distinct candidates in order: pod,
+    sport, dport; int64 [n, 3]), ``placed`` (the indices of those that
+    took a slot), ``slots`` (the slot each took)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    from cilium_tpu_torch.compile.ct_layout import CT_FIELDS
+    from cilium_tpu_torch.kernels.hashing import hash_words_np
+    from cilium_tpu_torch.utils import constants as C
+    from cilium_tpu_torch.world import cfg5_sizes
+    n_ids = cfg5_sizes(smoke)[0]
+    rng = np.random.default_rng(seed)
+    target = int(np.ceil(fill * cap))
+    occ = bytearray(cap)
+    seen, flows, placed, slots = set(), [], [], []
+    while len(slots) < target:
+        pod = rng.integers(0, n_ids, target)
+        sport = rng.integers(20000, 60000, target)
+        dport = cfg5_open_port(pod, rng, smoke)
+        base = hash_words_np(ctfull_keys(np.stack([pod, sport, dport], 1))) \
+            & np.uint32(cap - 1)
+        for f in zip(pod.tolist(), sport.tolist(), dport.tolist(),
+                     base.tolist()):
+            if f[:3] in seen:
+                continue
+            seen.add(f[:3])
+            flows.append(f[:3])
+            for r in range(probe_depth):
+                slot = (f[3] + r) & (cap - 1)
+                if not occ[slot]:
+                    occ[slot] = 1
+                    placed.append(len(flows) - 1)
+                    slots.append(slot)
+                    break
+            if len(slots) == target:
+                break
+    flows = np.asarray(flows, dtype=np.int64)
+    placed = np.asarray(placed, dtype=np.int64)
+    slots = np.asarray(slots, dtype=np.int64)
+    ct = {k: np.zeros((cap, 10) if k == "keys" else (cap,), np.uint32)
+          for k in CT_FIELDS}
+    ct["keys"][slots] = ctfull_keys(flows[placed])
+    ct["expiry"][slots] = CTFULL_T0 + C.CT_LIFETIME_TCP
+    ct["created"][slots] = CTFULL_T0
+    ct["flags"][slots] = C.CT_FLAG_SEEN_NON_SYN
+    ct["pkts_fwd"][slots] = 2
+    return SimpleNamespace(ct=ct, flows=flows, placed=placed, slots=slots)
+
+
+def ctfull_install(m, table, image):
+    """Put ``image``'s entries into ``m``'s bounded oracle CT ``table`` at
+    their slots (``ConntrackTable.install``)."""
+    ct = image.ct
+    slots = image.slots
+    kb = ct["keys"][slots].astype(">u4").tobytes()
+    cols = [ct[c][slots].tolist() for c in ("expiry", "created", "flags",
+                                             "pkts_fwd", "pkts_rev",
+                                             "rev_nat")]
+    w8 = ct["keys"][slots, 8].tolist()
+    w9 = ct["keys"][slots, 9].tolist()
+    for j, (slot, exp, cre, fl, pf, pr, rn, a, b) in enumerate(
+            zip(slots.tolist(), *cols, w8, w9)):
+        key = (kb[40 * j:40 * j + 16], kb[40 * j + 16:40 * j + 32],
+               a >> 16, a & 0xFFFF, b >> 8, b & 0xFF)
+        table.install(key, m.oracle.CTEntry(
+            expiry=exp, created=cre, flags=fl, pkts_fwd=pf, pkts_rev=pr,
+            rev_nat=rn), slot)
+
+
+def ctfull_rows(b, rows, flows, flags, reply=False):
+    """Rows ``rows`` of batch ``b`` carry ``flows`` (pod, sport, dport)
+    with ``flags``: forward (pod → web, ingress) or their replies (web →
+    pod, egress)."""
+    from cilium_tpu_torch.utils import constants as C
+    from cilium_tpu_torch.world import WEB_IP_WORD
+    pod_w = 0xAC100000 + flows[:, 0]
+    b["src"][rows, 2] = b["dst"][rows, 2] = 0xFFFF
+    b["src"][rows, 3] = WEB_IP_WORD if reply else pod_w
+    b["dst"][rows, 3] = pod_w if reply else WEB_IP_WORD
+    b["sport"][rows] = flows[:, 2] if reply else flows[:, 1]
+    b["dport"][rows] = flows[:, 1] if reply else flows[:, 2]
+    b["proto"][rows] = C.PROTO_TCP
+    b["tcp_flags"][rows] = flags
+    b["direction"][rows] = C.DIR_EGRESS if reply else C.DIR_INGRESS
+    b["valid"][rows] = True
+
+
+def ctfull_keys(flows):
+    """The forward CT key words [n, 10] (uint32) of cfg5 flows (pod, sport,
+    dport), as the device's ``ct_key_words`` and the oracle build them."""
+    import numpy as np
+    from cilium_tpu_torch.kernels.records import ct_key_words_np, empty_batch
+    b = empty_batch(len(flows))
+    ctfull_rows(b, np.arange(len(flows)), flows, 0)
+    return ct_key_words_np(b)
+
+
+def ctfull_clock(k, n):
+    """Part (e)'s batch ``k`` of ``n``: ``PARITY_TICK`` apart, and from the
+    last but one on after a jump past the SYN lifetime."""
+    from cilium_tpu_torch.utils import constants as C
+    return CTFULL_T0 + PARITY_TICK * k + C.CT_LIFETIME_SYN * (k >= n - 2)
+
+
+def ctfull_parity_batches(image, n, rows, seed, smoke):
+    """``make_batch`` for part (e), on cfg5's world over ``image``'s table:
+    six rows of every 8 a SYN flood of new flows (fresh every batch,
+    allowed, so each wants a slot; evictable, they churn among
+    themselves), row 3 data of seeded flows (ESTABLISHED), row 7 of every
+    16 their replies (REPLY) and row 15 new legit flows (a SYN each; from
+    the second batch on, half of them the ACKs of the previous batch's).
+    Clocks from ``ctfull_clock``."""
+    import numpy as np
+    from cilium_tpu_torch.kernels.records import empty_batch
+    from cilium_tpu_torch.utils import constants as C
+    from cilium_tpu_torch.world import cfg5_sizes
+    n_ids = cfg5_sizes(smoke)[0]
+    rng = np.random.default_rng(seed + 1)
+    seeded = image.flows[image.placed]
+    legit = [None]
+
+    def fresh(count, lo, hi):
+        pod = rng.integers(0, n_ids, count)
+        return np.stack([pod, rng.integers(lo, hi, count),
+                         cfg5_open_port(pod, rng, smoke)], axis=1)
+
+    def make(k, _last):
+        if k == n:
+            return None
+        b = empty_batch(rows)
+        i = np.arange(rows)
+        flood = i[(i % 8 != 3) & (i % 8 != 7)]
+        ctfull_rows(b, flood, fresh(flood.size, 1024, 20000), C.TCP_SYN)
+        for sel, reply in ((i % 8 == 3, False), (i % 16 == 7, True)):
+            r = i[sel]
+            ctfull_rows(b, r, seeded[rng.integers(0, len(seeded), r.size)],
+                        C.TCP_ACK, reply)
+        new = i[i % 16 == 15]
+        if legit[0] is not None:
+            acks, new = new[:new.size // 2], new[new.size // 2:]
+            ctfull_rows(b, acks, legit[0][:acks.size], C.TCP_ACK)
+        legit[0] = fresh(new.size, 60000, 65536)
+        ctfull_rows(b, new, legit[0], C.TCP_SYN)
+        return b, ctfull_clock(k, n)
+    return make
+
+
+def counter_mismatches(cnt, wcols, direction, fails, evicted, C):
+    """The step's counters against the oracle's verdicts on the same rows
+    (every row valid): each reason × direction cell, ``insert_fail`` and
+    ``ct_evicted`` (the oracle's CT_FULL rows and tail evictions of the
+    batch). → [description]."""
+    import numpy as np
+    cells = C.DROP_REASON_BINS * 2
+    want = np.bincount(wcols["reason"] * 2 + np.asarray(direction, np.int64),
+                       minlength=cells)[:cells]
+    got = np.asarray(cnt["by_reason_dir"]).astype(np.int64).reshape(-1)
+    bad = [f"by_reason_dir[{c}]: {got[c]} != {want[c]}"
+           for c in np.nonzero(got != want)[0]]
+    for name, w in (("insert_fail", fails), ("ct_evicted", evicted)):
+        g = int(np.asarray(cnt[name]).astype(np.int64))
+        if g != w:
+            bad.append(f"{name}: {g} != {w}")
+    return bad
+
+
+def ct_image_to(ct, image):
+    """Write ``image``'s CT arrays (uint32 numpy) into the port's ``ct``."""
+    import torch
+    from cilium_tpu_torch.convert import port_dtype
+    for k, v in image.ct.items():
+        ct[k].copy_(torch.from_numpy(port_dtype(v)))
+
+
+def port_sweep(ct):
+    """A whole-table GC pass over the port's ``ct`` in place, in chunks of
+    ``SERVE_GC_CHUNK`` rows as ``TorchDatapath.sweep_step`` drives
+    ``ct_sweep_chunk``. → ``sweep(now) → (reclaimed, live)``."""
+    from cilium_tpu_torch.kernels.conntrack import ct_sweep_chunk
+
+    def sweep(now):
+        cap = ct["expiry"].shape[0]
+        chunk = min(cap, SERVE_GC_CHUNK)
+        reclaimed = live = 0
+        for start in range(0, cap, chunk):
+            _ct, n, live = ct_sweep_chunk(ct, now, start, chunk,
+                                          count_now=now, inplace=True)
+            reclaimed += int(n)
+        return reclaimed, int(live)
+    return sweep
+
+
 def port_step(fn, tensors, ct, world_index, pack=None):
     """``step`` of ``parity_part`` for the port: ``fn`` (a
     ``make_classify_fn`` of the port, CT donated) on ``DEVICE`` over the
     placed ``tensors`` and ``ct``; ``pack`` the wire the batch ships as
     (else the batch dict). → (out as numpy, host ms of the call, device
-    ms between CUDA events around it, or None off the card)."""
+    ms between CUDA events around it, or None off the card, the counters
+    as numpy)."""
     import torch
     from cilium_tpu_torch.convert import to_numpy
 
@@ -1545,34 +1808,35 @@ def port_step(fn, tensors, ct, world_index, pack=None):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
         t0 = time.perf_counter()
-        out, _ct, _cnt = fn(tensors, ct, wire, now, world_index)
+        out, _ct, cnt = fn(tensors, ct, wire, now, world_index)
         host = (time.perf_counter() - t0) * 1e3
         if cuda:
             ev[1].record()
             torch.cuda.synchronize()
-        return to_numpy(out), host, ev[0].elapsed_time(ev[1]) if cuda \
-            else None
+        return (to_numpy(out), host,
+                ev[0].elapsed_time(ev[1]) if cuda else None, to_numpy(cnt))
     return step
 
 
-def parity_line(res, launches, card, what):
+def parity_line(res, launches, card, what, seconds):
     import numpy as np
     cuda = [x for x in res.cuda_ms if x is not None]
     dev = (f"cuda p50 {np.median(cuda):.3f} ms" if cuda
            else "cuda not measured (off the card)")
     return (f"parity {res.label}: {len(res.batches)} batches, {res.rows} "
-            f"rows, each row's {', '.join(PARITY_COLS)}{what} equal to the "
-            f"oracle's; the live CT after every batch equal slot for slot "
+            f"rows, each row's {', '.join(PARITY_COLS)}{what} and each "
+            f"batch's counters equal to the oracle's; the live CT after every batch equal slot for slot "
             f"(key, flags, expiry, counters, rev-NAT): {res.ct_entries} "
             f"entries compared, {res.expired} expired and {res.reused} "
             f"slots reused across the clock; oracle {res.oracle_s:.3f} s "
             f"(host); step host p50 {np.median(res.host_ms):.3f} ms, {dev} "
-            f"per batch; launches {json.dumps(launches)}; mismatches 0 "
-            f"[{card}]")
+            f"per batch; launches {json.dumps(launches)}; mismatches 0; "
+            f"the part {seconds:.3f} s (host clock) [{card}]")
 
 
 #: phase parity's parts, in order
-PARITY_PARTS = ("cfg5", "mixed", "services", "never", "always", "sequential")
+PARITY_PARTS = ("cfg5", "mixed", "services", "never", "always", "sequential",
+                "ctfull")
 
 
 def parity_spec(part, cfg5=None, mixed=None):
@@ -1581,9 +1845,13 @@ def parity_spec(part, cfg5=None, mixed=None):
     CT of the world's size, the world's wire); (c) ``"services"`` on
     ``test_lb.py``'s world and (d) ``"never"``, ``"always"`` and
     ``"sequential"`` on ``test_parity.py``'s, compiled by the port and
-    placed on ``DEVICE``, batch dicts. → a namespace: ``label``, ``snap``,
-    ``tensors``, ``cap``, ``make`` (``parity_part``'s ``make_batch``),
-    ``pack``, ``v4_only``, ``lb``, ``sequential``, ``what``."""
+    placed on ``DEVICE``, batch dicts; (e) ``"ctfull"`` on cfg5's world
+    over a table seeded from ``ctfull_image`` (its size cfg6's), with a
+    whole-table sweep before the last batch. → a namespace: ``label``,
+    ``snap``, ``tensors``, ``cap``, ``make`` (``parity_part``'s
+    ``make_batch``), ``pack``, ``v4_only``, ``lb``, ``sequential``,
+    ``what``, ``image`` and ``sweep_before`` (the batch the sweep
+    precedes)."""
     from types import SimpleNamespace
 
     from cilium_tpu_torch.convert import snapshot_tensors_to_torch
@@ -1591,7 +1859,19 @@ def parity_spec(part, cfg5=None, mixed=None):
     m = port_modules()
     sizes = PARITY[PRESET]
     spec = dict(pack=None, v4_only=False, lb=False, sequential=False,
-                what="")
+                what="", image=None, sweep_before=None)
+    if part == "ctfull":
+        z = sizes["ctfull"]
+        smoke = PRESET == "smoke"
+        image = ctfull_image(z["cap"], CTFULL_SEED, smoke)
+        return SimpleNamespace(**dict(
+            spec, label=f"(e) cfg5 at CT_FULL (CT {z['cap']}, batch "
+                        f"{z['rows']})",
+            snap=cfg5.snapshot, tensors=cfg5.tensors, cap=z["cap"],
+            make=ctfull_parity_batches(image, z["batches"], z["rows"],
+                                       CTFULL_SEED, smoke),
+            pack=cfg5.pack, v4_only=True, image=image,
+            sweep_before=z["batches"] - 1))
     if part in ("cfg5", "mixed"):
         w = cfg5 if part == "cfg5" else mixed
         cap = sizes.get(f"{part}_cap") or w.ct["expiry"].shape[0]
@@ -1628,6 +1908,36 @@ def parity_spec(part, cfg5=None, mixed=None):
     return SimpleNamespace(**spec, snap=snap, tensors=tensors)
 
 
+def ctfull_checks(res, spec):
+    """Part (e)'s own checks: every check before the sweep finds
+    ``CTFULL_MIN_OCC`` of the table live, and the part drops at least the
+    preset's ``min_full`` rows CT_FULL and tail-evicts ``min_evicted``
+    live entries. → None; a check not met raises."""
+    z = PARITY[PRESET]["ctfull"]
+    pre = res.occupancy[:spec.sweep_before]
+    check(min(pre) >= CTFULL_MIN_OCC,
+          f"parity (e): occupancy {min(pre):.6f} at a check before the "
+          f"sweep, under {CTFULL_MIN_OCC}")
+    check(res.ct_full >= z["min_full"],
+          f"parity (e): {res.ct_full} rows CT_FULL, under {z['min_full']}")
+    check(res.evicted >= z["min_evicted"],
+          f"parity (e): {res.evicted} tail evictions, under "
+          f"{z['min_evicted']}")
+    check(res.swept is not None and res.swept[0] > 0,
+          f"parity (e): the sweep reclaimed {res.swept}")
+
+
+def ctfull_line(res, spec, card):
+    ctfull_checks(res, spec)
+    occ = ", ".join(f"{x:.6f}" for x in res.occupancy)
+    return (f"parity (e) CT_FULL: {spec.image.slots.size} established "
+            f"entries seeded on both sides; occupancy after each batch "
+            f"[{occ}] (the sweep before batch {spec.sweep_before}); "
+            f"{res.ct_full} rows CT_FULL, {res.evicted} live entries "
+            f"tail-evicted; the sweep reclaimed {res.swept[0]} slots, "
+            f"{res.swept[1]} live after it [{card}]")
+
+
 def run_parity_part(spec, step_wrap=None):
     """Part ``spec`` through the port's step on ``DEVICE`` (a fresh CT),
     held against the port's oracle by ``parity_part``. ``step_wrap``
@@ -1637,6 +1947,8 @@ def run_parity_part(spec, step_wrap=None):
     from cilium_tpu_torch.kernels import fused as fk
     from cilium_tpu_torch.kernels.classify import make_classify_fn
     ct = make_ct_arrays(CTConfig(capacity=spec.cap), DEVICE)
+    if spec.image is not None:
+        ct_image_to(ct, spec.image)
     fn = make_classify_fn(v4_only=spec.v4_only, packed=spec.pack is not None,
                           donate_ct=True, device=DEVICE)
     step = port_step(fn, spec.tensors, ct, spec.snap.world_index, spec.pack)
@@ -1644,7 +1956,10 @@ def run_parity_part(spec, step_wrap=None):
     res = parity_part(spec.label, spec.snap, port_modules(),
                       step_wrap(step) if step_wrap else step,
                       lambda now: device_live(ct, now), spec.make, spec.cap,
-                      lb=spec.lb, sequential=spec.sequential)
+                      lb=spec.lb, sequential=spec.sequential,
+                      image=spec.image,
+                      sweep=None if spec.sweep_before is None
+                      else (spec.sweep_before, port_sweep(ct)))
     launches = dict(fk.LAUNCHES)
     for k, v in launches.items():
         check(v >= len(res.batches) or DEVICE != "cuda",
@@ -1662,6 +1977,7 @@ def phase_parity(cfg5, mixed, card, report=None):
     lines = []
     t0 = time.perf_counter()
     for part in PARITY_PARTS:
+        t_part = time.perf_counter()
         spec = parity_spec(part, cfg5, mixed)
         res, _ct, launches = run_parity_part(spec)
         if part == "cfg5":
@@ -1670,7 +1986,10 @@ def phase_parity(cfg5, mixed, card, report=None):
                   f"{res.reused} slots reused across the clock jump")
         for k, v in launches.items():
             total[k] += v
-        lines.append(parity_line(res, launches, card, spec.what))
+        lines.append(parity_line(res, launches, card, spec.what,
+                                 time.perf_counter() - t_part))
+        if part == "ctfull":
+            lines.append(ctfull_line(res, spec, card))
     if report is not None:
         for k, v in total.items():
             report[k]["launches"] += v

@@ -322,3 +322,205 @@ def test_delta_snapshot_keeps_its_verdict_lazy(cfg5_pair):
     assert snap.image._dense is not None          # now it materialised
     pair.delete("k8s:bench=u2")
     assert pair.update(cap=1 << 16) is not None
+
+
+# --------------------------------------------------------------------------- #
+# TestEngineIncremental, TestEndpointGate: the production loop takes the
+# patch path, held equal to a full build, on each package
+# --------------------------------------------------------------------------- #
+ENG_MODS = {"config": "runtime.config", "datapath": "runtime.datapath",
+            "engine": "runtime.engine", "records": "kernels.records",
+            "C": "utils.constants", "ip": "utils.ip"}
+ENG_ORACLE = {"cilium_tpu": "oracle", "cilium_tpu_torch":
+              "cilium_tpu_torch.oracle"}
+#: the out columns ``test_incremental.TestEngineIncremental`` compares
+ENG_OUT = ("allow", "reason", "status", "remote_identity", "redirect")
+
+
+def eng_modules(pkg):
+    """The engine's modules of package ``pkg``; the port's ``TorchDatapath``
+    stands for the reference's ``JITDatapath`` (``backend="jit"``)."""
+    import importlib
+    ns = {k: importlib.import_module(f"{pkg}.{v}")
+          for k, v in ENG_MODS.items()}
+    ns["oracle"] = importlib.import_module(ENG_ORACLE[pkg])
+    m = SimpleNamespace(pkg=pkg, **ns)
+    m.Device = (m.datapath.TorchDatapath if pkg == "cilium_tpu_torch"
+                else m.datapath.JITDatapath)
+    return m
+
+
+def eng_config(m, **kw):
+    if m.pkg == "cilium_tpu_torch":
+        kw["device"] = "cpu"
+    return m.config.DaemonConfig(**kw)
+
+
+def eng_both(case):
+    """Run ``case(m)`` on each package. → the port's observation, held
+    equal to the reference's."""
+    obs = [case(eng_modules(pkg)) for pkg in PKGS]
+    assert obs[0] == obs[1]
+    return obs[1]
+
+
+def out_obs(out, keys=ENG_OUT):
+    return {k: np.asarray(out[k]).astype(np.int64).tolist() for k in keys}
+
+
+class TestEngineIncremental:
+    """``tests/test_incremental.py::TestEngineIncremental`` on both
+    packages: the incremental engine's verdicts equal a full-build engine's
+    on each side, and the two sides' verdicts are equal."""
+
+    @staticmethod
+    def _world_engine(m, datapath, incremental=True):
+        eng = m.engine.Engine(eng_config(m, ct_capacity=2048,
+                                         auto_regen=False,
+                                         incremental=incremental),
+                              datapath=datapath)
+        eng.add_endpoint(["k8s:app=web"], ips=("192.168.1.10",), ep_id=1)
+        for i in range(6):
+            eng.add_endpoint([f"k8s:peer=p{i}", f"k8s:group=g{i % 2}"],
+                             ips=(f"172.16.{i}.5",), ep_id=10 + i)
+        eng.apply_policy([{
+            "endpointSelector": {"matchLabels": {"app": "web"}},
+            "ingress": [{"fromEndpoints": [{"matchLabels": {"group": "g0"}}],
+                         "toPorts": [{"ports": [
+                             {"port": "80", "protocol": "TCP"}]}]}]}])
+        eng.regenerate()
+        return eng
+
+    @staticmethod
+    def _traffic(m, slots):
+        C = m.C
+        pkts = []
+        for i in range(6):
+            for dp in (80, 443, 8080):
+                s16, _ = m.ip.parse_addr(f"172.16.{i}.5")
+                d16, _ = m.ip.parse_addr("192.168.1.10")
+                pkts.append(m.oracle.PacketRecord(
+                    s16, d16, 30000 + i, dp, C.PROTO_TCP, C.TCP_SYN, False,
+                    1, C.DIR_INGRESS))
+        return m.records.batch_from_records(pkts, slots)
+
+    @pytest.mark.parametrize("backend", ["jit", "fake"])
+    def test_incremental_engine_matches_full_engine(self, backend):
+        updates = [
+            [{"endpointSelector": {"matchLabels": {"app": "web"}},
+              "ingress": [{"fromEndpoints": [
+                  {"matchLabels": {"group": "g1"}}],
+                  "toPorts": [{"ports": [
+                      {"port": "443", "protocol": "TCP"}]}]}]}],
+            [{"endpointSelector": {"matchLabels": {"app": "web"}},
+              "ingressDeny": [{"fromEndpoints": [
+                  {"matchLabels": {"peer": "p0"}}]}]}],
+            [{"endpointSelector": {"matchLabels": {"app": "web"}},
+              "ingress": [{"toPorts": [{
+                  "ports": [{"port": "8080", "protocol": "TCP"}],
+                  "rules": {"http": [{"method": "GET",
+                                      "path": "/api"}]}}]}]}],
+        ]
+
+        def case(m):
+            def dp():
+                if backend == "jit":
+                    return m.Device(eng_config(m, ct_capacity=2048,
+                                               auto_regen=False))
+                return m.datapath.FakeDatapath(eng_config(m,
+                                                          ct_capacity=2048))
+            eng_inc = self._world_engine(m, dp(), incremental=True)
+            eng_full = self._world_engine(m, dp(), incremental=False)
+            seen = []
+            try:
+                now = 1000
+                for docs in updates:
+                    eng_inc.apply_policy(docs)
+                    eng_full.apply_policy(docs)
+                    eng_inc.regenerate()
+                    eng_full.regenerate()
+                    slots = eng_inc.active.snapshot.ep_slot_of
+                    assert slots == eng_full.active.snapshot.ep_slot_of
+                    batch = self._traffic(m, slots)
+                    out_i = out_obs(eng_inc.classify(dict(batch), now=now))
+                    out_f = out_obs(eng_full.classify(dict(batch), now=now))
+                    assert out_i == out_f
+                    seen.append((dict(slots), out_i))
+                    now += 50
+                rendered = eng_inc.metrics.render_prometheus()
+                assert "regen_incremental_total" in rendered
+                return seen, [ln for ln in rendered.splitlines()
+                              if ln.startswith("regen_incremental_total")]
+            finally:
+                eng_inc.stop()
+                eng_full.stop()
+        eng_both(case)
+
+    def test_incremental_sharded_backend(self):
+        """``place_patch`` through the meshed backend (the reference's
+        2 × 2 JAX mesh; the port's single-process mesh on ``cpu``): row
+        updates on a sharded verdict tensor."""
+        deny = [{"endpointSelector": {"matchLabels": {"app": "web"}},
+                 "ingressDeny": [{"fromEndpoints": [
+                     {"matchLabels": {"peer": "p2"}}]}]}]
+
+        def case(m):
+            eng_inc = self._world_engine(
+                m, m.Device(eng_config(m, ct_capacity=2048, auto_regen=False,
+                                       n_shards=2, rule_shards=2)),
+                incremental=True)
+            eng_full = self._world_engine(
+                m, m.datapath.FakeDatapath(eng_config(m, ct_capacity=2048)),
+                incremental=False)
+            try:
+                eng_inc.apply_policy(deny)
+                eng_full.apply_policy(deny)
+                eng_inc.regenerate()
+                eng_full.regenerate()
+                slots = eng_inc.active.snapshot.ep_slot_of
+                batch = self._traffic(m, slots)
+                keys = ENG_OUT[:4]
+                out_i = out_obs(eng_inc.classify(dict(batch), now=500), keys)
+                out_f = out_obs(eng_full.classify(dict(batch), now=500),
+                                keys)
+                assert out_i == out_f
+                return dict(slots), out_i
+            finally:
+                eng_inc.stop()
+                eng_full.stop()
+        eng_both(case)
+
+
+class TestEndpointGate:
+    def test_add_endpoint_falls_back_to_full_build(self):
+        """A new endpoint reusing an existing identity (no ipcache change)
+        still invalidates the incremental path: the snapshot's endpoint
+        slots changed."""
+        def case(m):
+            eng = m.engine.Engine(
+                eng_config(m, ct_capacity=1024, auto_regen=False,
+                           incremental=True),
+                datapath=m.datapath.FakeDatapath(eng_config(
+                    m, ct_capacity=1024)))
+            try:
+                eng.add_endpoint(["k8s:app=web"], ips=("192.168.1.10",),
+                                 ep_id=1)
+                eng.apply_policy([{
+                    "endpointSelector": {"matchLabels": {"app": "web"}},
+                    "ingress": [{"toPorts": [{"ports": [
+                        {"port": "80", "protocol": "TCP"}]}]}]}])
+                eng.regenerate()
+                eng.add_endpoint(["k8s:app=web"], ep_id=2)
+                snap = eng.regenerate().snapshot
+                assert 2 in snap.ep_slot_of, \
+                    "new endpoint missing from snapshot"
+                grown = dict(snap.ep_slot_of)
+                eng.remove_endpoint(2)
+                snap = eng.regenerate().snapshot
+                assert 2 not in snap.ep_slot_of
+                return grown, dict(snap.ep_slot_of), [
+                    ln for ln in eng.metrics.render_prometheus().splitlines()
+                    if ln.startswith("regen_")]
+            finally:
+                eng.stop()
+        eng_both(case)

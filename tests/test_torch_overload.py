@@ -8,7 +8,9 @@ asserts the reference's expectations on both, and holds the two
 observations equal, exactly: ladder states and their trail, shed counts
 and reasons, the rows each dispatch saw, counters, gauges, health and
 ``status_doc`` keys. Left out of the observations, because they depend on
-the wall clock: dwell and ``since`` seconds, trail time stamps and which
+the wall clock: dwell and ``since`` seconds, trail time stamps, the
+engine's shed rate (rows over the seconds between two steps; only its side
+of the shed thresholds is kept) and which
 submission fails fast (the reference's own test asserts only that one
 does, within a second).
 """
@@ -58,13 +60,33 @@ def fake_engine(m, **kw):
     return m.engine.Engine(cfg, datapath=m.datapath.FakeDatapath(cfg))
 
 
-def untimed_ladder(st):
-    """An ``OverloadLadder.status()`` without its clock readings."""
+def shed_side(rate, high, low):
+    """Where a shed rate stands against the ladder's shed latch: the
+    engine's rate is shed rows over the wall-clock time between two steps,
+    so only its side of the thresholds is the same on both packages."""
+    return "high" if rate >= high else "low" if rate <= low else "between"
+
+
+def untimed_inputs(inputs, high, low):
+    inputs = dict(inputs)
+    if "shed_rate" in inputs:
+        inputs["shed_rate"] = shed_side(inputs["shed_rate"], high, low)
+    return inputs
+
+
+def untimed_ladder(st, shed_high=50.0, shed_low=5.0):
+    """An ``OverloadLadder.status()`` without its clock readings: dwell and
+    ``since`` seconds and trail time stamps are dropped, and each observed
+    shed rate is replaced by its side of the shed thresholds (``ladder``'s
+    by default)."""
     st = dict(st)
     st.pop("since_s")
     st.pop("dwell_s")
-    st["trail"] = [{k: v for k, v in t.items() if k != "t"}
+    st["trail"] = [{k: untimed_inputs(v, shed_high, shed_low)
+                    if k == "inputs" else v
+                    for k, v in t.items() if k != "t"}
                    for t in st["trail"]]
+    st["inputs"] = untimed_inputs(st["inputs"], shed_high, shed_low)
     return st
 
 
@@ -356,7 +378,8 @@ class TestShedNew:
                 assert doc["overload"]["state"] == "ok"
                 counters = {k: v for k, v in eng.metrics.counters.items()
                             if k.startswith("overload_")}
-                return levels, up, counters, untimed_ladder(doc["overload"])
+                return levels, up, counters, \
+                    untimed_ladder(doc["overload"], 10.0, 1.0)
             finally:
                 eng.stop()
         both(case)
