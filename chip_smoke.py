@@ -30,12 +30,20 @@ result line):
    end, ≤ 0.5 at the end, evictions, post-storm flows/s ≥ 0.8 of
    pre-storm, the ledger's forecast before SHED-NEW, its CT row = the
    gauge, polling < 2% of serving), every dispatch and GC tick equals a
-   plain ``TorchDatapath`` replay (CT included), K1/K2/K3 launched once a
+   plain ``TorchDatapath`` replay (CT included; the dispatches before
+   the post-storm window are replayed and dropped before it starts, so
+   that window runs without their copies), K1/K2/K3 launched once a
    dispatch, and the saturated table's insert is the same on the card
    and the CPU. Prints survival, legit p50/p99, the occupancy
    trajectory, the ladder's dwell, evictions and CT_FULL, flows/s before,
-   during and after, and K2 at the saturated table (cold, hot, host, its
-   device time on the path, bound).
+   during and after, the pipeline worker's time by window (pre-storm and
+   post-storm: the host ms medians of ``classify_async`` and its parts —
+   pack, upload, the step under ``_ct_lock``, the output fetch — of the
+   engine's dispatch and finalize and of each of the finalize's folds;
+   each thread's CPU seconds, the device and pinned host allocators'
+   counters, and host probes at the windows' edges), and K2
+   at the saturated table (cold, hot, host, its device time on the path,
+   bound).
 4. worlds  — compiles the cfg5, mixed and cfg3 worlds from their rules with
    the port's policy compiler (``cilium_tpu_torch/world.py``) and places
    them; prints each one's compile seconds (host CPU), snapshot bytes and
@@ -89,7 +97,13 @@ result line):
    the last two after a jump past the SYN lifetime and the last after a
    whole-table ``ct_sweep_chunk`` pass; it fails unless every check
    before the sweep finds ≥ 95% live, ≥ 10,000 rows drop CT_FULL and
-   ≥ 10,000 live entries are tail-evicted. Every row's allow, reason,
+   ≥ 10,000 live entries are tail-evicted; (f) part (a)'s traffic through
+   the served path: cfg5 built through the port's engine on a fresh CT of
+   2^21 slots, 4 batches of 65,536 each ``Engine.submit``-ted whole and
+   awaited (pipeline → ``TorchDatapath.classify_async`` → finalize, one
+   dispatch a batch, its counters compared), the last after the clock
+   jump, the shadow auditor at sampling 1.0 over every row (all 262,144
+   checked, 0 mismatched; its replay's seconds). Every row's allow, reason,
    status, remote identity, matched rule, LPM prefix and CT state (and
    (c)'s LB columns), each batch's per-reason × direction,
    ``insert_fail`` and ``ct_evicted`` counters and, after every batch,
@@ -1002,11 +1016,11 @@ def phase_cfg3(world, card, report, profile=False):
 #: of a batch each keeps and part (a)'s CT slots (a rehearsal's reference
 #: oracle scans every rule and prefix for each row)
 PARITY = {"full": dict(cfg5=6, mixed=6, cfg5_rows=None, mixed_rows=None,
-                      cfg5_cap=None,
+                      cfg5_cap=None, engine=4,
                       ctfull=dict(cap=1 << 19, rows=1 << 16, batches=6,
                                   min_full=10_000, min_evicted=10_000)),
           "smoke": dict(cfg5=4, mixed=4, cfg5_rows=512, mixed_rows=128,
-                        cfg5_cap=1 << 12,
+                        cfg5_cap=1 << 12, engine=4,
                         ctfull=dict(cap=1 << 12, rows=512, batches=6,
                                     min_full=1000, min_evicted=64))}
 #: part (e): the share of the table the seeded established flows fill, the
@@ -1821,8 +1835,9 @@ def port_step(fn, tensors, ct, world_index, pack=None):
 def parity_line(res, launches, card, what, seconds):
     import numpy as np
     cuda = [x for x in res.cuda_ms if x is not None]
-    dev = (f"cuda p50 {np.median(cuda):.3f} ms" if cuda
-           else "cuda not measured (off the card)")
+    dev = (f"cuda p50 {np.median(cuda):.3f} ms" if cuda else
+           "cuda not measured" + (" (off the card)" if DEVICE != "cuda"
+                                  else " (the served path)"))
     return (f"parity {res.label}: {len(res.batches)} batches, {res.rows} "
             f"rows, each row's {', '.join(PARITY_COLS)}{what} and each "
             f"batch's counters equal to the oracle's; the live CT after every batch equal slot for slot "
@@ -1836,7 +1851,7 @@ def parity_line(res, launches, card, what, seconds):
 
 #: phase parity's parts, in order
 PARITY_PARTS = ("cfg5", "mixed", "services", "never", "always", "sequential",
-                "ctfull")
+                "ctfull", "engine")
 
 
 def parity_spec(part, cfg5=None, mixed=None):
@@ -1847,11 +1862,15 @@ def parity_spec(part, cfg5=None, mixed=None):
     ``"sequential"`` on ``test_parity.py``'s, compiled by the port and
     placed on ``DEVICE``, batch dicts; (e) ``"ctfull"`` on cfg5's world
     over a table seeded from ``ctfull_image`` (its size cfg6's), with a
-    whole-table sweep before the last batch. → a namespace: ``label``,
-    ``snap``, ``tensors``, ``cap``, ``make`` (``parity_part``'s
-    ``make_batch``), ``pack``, ``v4_only``, ``lb``, ``sequential``,
-    ``what``, ``image`` and ``sweep_before`` (the batch the sweep
-    precedes)."""
+    whole-table sweep before the last batch; (f) ``"engine"``, part (a)'s
+    traffic through the served path: cfg5 built through the port's engine
+    (``serve_engine``) on a fresh CT of cfg5's size (the smoke preset's
+    part (a) size), its batches ``Engine.submit``-ted whole, the auditor at
+    sampling 1.0 over every row. → a namespace: ``label``, ``snap``,
+    ``tensors``, ``cap``, ``make`` (``parity_part``'s ``make_batch``),
+    ``pack``, ``v4_only``, ``lb``, ``sequential``, ``what``, ``image``,
+    ``sweep_before`` (the batch the sweep precedes), ``engine`` (part
+    (f)'s, else None) and ``build_s`` (its host seconds)."""
     from types import SimpleNamespace
 
     from cilium_tpu_torch.convert import snapshot_tensors_to_torch
@@ -1859,7 +1878,25 @@ def parity_spec(part, cfg5=None, mixed=None):
     m = port_modules()
     sizes = PARITY[PRESET]
     spec = dict(pack=None, v4_only=False, lb=False, sequential=False,
-                what="", image=None, sweep_before=None)
+                what="", image=None, sweep_before=None, engine=None,
+                build_s=None)
+    if part == "engine":
+        from cilium_tpu_torch.world import cfg5_sizes, cfg5_traffic
+        smoke = PRESET == "smoke"
+        _ids, _rules, cap, _flows, rows = cfg5_sizes(smoke)
+        cap, rows = sizes["cfg5_cap"] or cap, sizes["cfg5_rows"] or rows
+        eng, cfg, build_s = serve_engine(
+            ct_capacity=cap, batch_size=rows, audit_enabled=True,
+            audit_sample_rate=1.0, audit_max_rows=rows,
+            audit_pool_batches=sizes["engine"])
+        next_batch, _warm = cfg5_traffic(0, smoke)
+        return SimpleNamespace(**dict(
+            spec, label=f"(f) cfg5 through Engine.submit (CT "
+                        f"{cfg.ct_capacity}, batch {cfg.batch_size})",
+            snap=eng.active.snapshot, tensors=None, cap=cfg.ct_capacity,
+            make=cfg5_parity_batches(next_batch, sizes["engine"],
+                                     sizes["cfg5_rows"]),
+            v4_only=True, engine=eng, build_s=build_s))
     if part == "ctfull":
         z = sizes["ctfull"]
         smoke = PRESET == "smoke"
@@ -1938,34 +1975,94 @@ def ctfull_line(res, spec, card):
             f"{res.swept[1]} live after it [{card}]")
 
 
+def engine_step(eng, log):
+    """``step`` of ``parity_part`` through the served path: the batch
+    ``Engine.submit``-ted whole (the pipeline's direct path →
+    ``TorchDatapath.classify_async`` → finalize, its folds and the
+    auditor's capture) and its ticket awaited; ``log``, a ``DispatchLog``
+    on the engine's datapath, must see exactly one dispatch. → (the
+    ticket's out as numpy, host ms submit → result, None, that dispatch's
+    counters)."""
+    import numpy as np
+
+    def step(b, now):
+        n0 = log.steps()
+        t0 = time.perf_counter()
+        out = eng.submit(log.own(b), now=now).result(timeout=300)
+        host = (time.perf_counter() - t0) * 1e3
+        check(log.steps() == n0 + 1, f"parity (f): {log.steps() - n0} "
+                                     f"dispatches for one batch")
+        entry = [e for kind, e in log.entries if kind == "step"][-1]
+        return ({k: np.asarray(v) for k, v in out.items()}, host, None,
+                entry["result"][1])
+    return step
+
+
 def run_parity_part(spec, step_wrap=None):
-    """Part ``spec`` through the port's step on ``DEVICE`` (a fresh CT),
-    held against the port's oracle by ``parity_part``. ``step_wrap``
-    wraps the step (a rehearsal records its outputs). → (result, the CT,
-    the launches)."""
+    """Part ``spec`` through the port's step on ``DEVICE`` (a fresh CT), or
+    through ``spec.engine``'s served path (``engine_step``), held against
+    the port's oracle by ``parity_part``. ``step_wrap`` wraps the step (a
+    rehearsal records its outputs). → (result, the CT, the launches)."""
     from cilium_tpu_torch.compile.ct_layout import CTConfig, make_ct_arrays
     from cilium_tpu_torch.kernels import fused as fk
     from cilium_tpu_torch.kernels.classify import make_classify_fn
-    ct = make_ct_arrays(CTConfig(capacity=spec.cap), DEVICE)
-    if spec.image is not None:
-        ct_image_to(ct, spec.image)
-    fn = make_classify_fn(v4_only=spec.v4_only, packed=spec.pack is not None,
-                          donate_ct=True, device=DEVICE)
-    step = port_step(fn, spec.tensors, ct, spec.snap.world_index, spec.pack)
+    if spec.engine is not None:
+        dp = spec.engine.datapath
+        step = engine_step(spec.engine, DispatchLog(dp))
+
+        def cts():
+            return dp._cts[0]
+    else:
+        ct = make_ct_arrays(CTConfig(capacity=spec.cap), DEVICE)
+        if spec.image is not None:
+            ct_image_to(ct, spec.image)
+        fn = make_classify_fn(v4_only=spec.v4_only,
+                              packed=spec.pack is not None, donate_ct=True,
+                              device=DEVICE)
+        step = port_step(fn, spec.tensors, ct, spec.snap.world_index,
+                         spec.pack)
+
+        def cts():
+            return ct
     fk.reset_launches()
     res = parity_part(spec.label, spec.snap, port_modules(),
                       step_wrap(step) if step_wrap else step,
-                      lambda now: device_live(ct, now), spec.make, spec.cap,
-                      lb=spec.lb, sequential=spec.sequential,
+                      lambda now: device_live(cts(), now), spec.make,
+                      spec.cap, lb=spec.lb, sequential=spec.sequential,
                       image=spec.image,
                       sweep=None if spec.sweep_before is None
-                      else (spec.sweep_before, port_sweep(ct)))
+                      else (spec.sweep_before, port_sweep(cts())))
     launches = dict(fk.LAUNCHES)
     for k, v in launches.items():
         check(v >= len(res.batches) or DEVICE != "cuda",
               f"parity {spec.label}: {k} launched {v} times for "
               f"{len(res.batches)} batches")
-    return res, ct, launches
+    return res, cts(), launches
+
+
+def engine_audit_line(spec, res, card):
+    """Part (f)'s auditor: its captures of every row of the part's batches
+    replayed against the oracle (``audit_step`` until none is pending);
+    every row must be checked, none mismatched. → the line, with the
+    replay's host seconds and µs a row."""
+    eng = spec.engine
+    t0 = time.perf_counter()
+    while (eng.audit_step(budget=None) or {}).get("replayed"):
+        pass
+    replay_s = time.perf_counter() - t0
+    st = eng.auditor.stats()
+    check(st["checked_rows"] == res.rows and st["mismatched_rows"] == 0
+          and not st["pending"],
+          f"parity (f): the auditor checked {st['checked_rows']} of "
+          f"{res.rows} rows, {st['mismatched_rows']} mismatched, "
+          f"{st['pending']} pending")
+    return (f"parity (f) auditor at sampling 1.0 (max rows "
+            f"{eng.config.audit_max_rows}): {st['checked_batches']} "
+            f"batches, {st['checked_rows']} rows replayed against the oracle "
+            f"in {replay_s:.3f} s (host), "
+            f"{replay_s * 1e6 / max(1, st['checked_rows']):.3f} µs a row, "
+            f"{st['mismatched_rows']} mismatched; the engine built in "
+            f"{spec.build_s:.3f} s (host) [{card}]")
 
 
 def phase_parity(cfg5, mixed, card, report=None):
@@ -1990,6 +2087,9 @@ def phase_parity(cfg5, mixed, card, report=None):
                                  time.perf_counter() - t_part))
         if part == "ctfull":
             lines.append(ctfull_line(res, spec, card))
+        if part == "engine":
+            lines.append(engine_audit_line(spec, res, card))
+            spec.engine.stop()
     if report is not None:
         for k, v in total.items():
             report[k]["launches"] += v
@@ -2026,33 +2126,22 @@ def storm_docs(pod, port, label):
                                                   "protocol": "TCP"}]}]}]}]
 
 
-def serve_engine(**overrides):
-    """cfg5 built through the port's engine API as ``bench.py`` builds it
+def cfg5_engine_world(eng, m, smoke):
+    """cfg5 built through ``eng``'s engine API as ``bench.py`` builds it
     for the reference's update storm (the web endpoint, one identity and a
-    /32 per pod, the rules through ``repo.add``, ``regenerate``), at full
-    width; ``overrides`` are further ``DaemonConfig`` fields. → (engine,
-    its config, host seconds)."""
-    from cilium_tpu_torch.model.labels import Labels
-    from cilium_tpu_torch.model.rules import parse_rule
-    from cilium_tpu_torch.runtime import DaemonConfig, Engine
-    from cilium_tpu_torch.runtime.datapath import TorchDatapath
+    /32 per pod, the rules through ``repo.add``, ``regenerate``), with
+    ``m``'s ``labels`` and ``rules`` modules (the engine's package), at the
+    ``smoke`` preset's sizes or full width. → ``eng``."""
     from cilium_tpu_torch.world import cfg5_sizes
-    n_ids, n_rules, cap, _flows, batch = cfg5_sizes(PRESET == "smoke")
-    kw = dict(device=DEVICE, ct_capacity=cap, batch_size=batch,
-              v4_only=True, auto_regen=False, pipeline_inflight=2,
-              pipeline_flush_ms=1.0, ct_gc_chunk_rows=SERVE_GC_CHUNK,
-              audit_max_rows=512, flowlog_mode="none")
-    kw.update(overrides)
-    cfg = DaemonConfig(**kw)
-    t0 = time.perf_counter()
-    eng = Engine(cfg, datapath=TorchDatapath(cfg))
+    n_ids, n_rules = cfg5_sizes(smoke)[:2]
     eng.add_endpoint(["k8s:app=web"], ips=("192.168.0.10",), ep_id=1)
     for i in range(n_ids):
-        ident = eng.ctx.allocator.allocate(Labels.parse([f"k8s:pod=p{i}"]))
+        ident = eng.ctx.allocator.allocate(
+            m.labels.Labels.parse([f"k8s:pod=p{i}"]))
         eng.ctx.ipcache.upsert(
             f"172.{16 + (i >> 16)}.{(i >> 8) & 0xFF}.{i & 0xFF}/32",
             ident.id)
-    eng.repo.add([parse_rule({
+    eng.repo.add([m.rules.parse_rule({
         "endpointSelector": {"matchLabels": {"app": "web"}},
         "ingress": [{
             "fromEndpoints": [{"matchLabels": {"pod": f"p{j % n_ids}"}}],
@@ -2060,6 +2149,27 @@ def serve_engine(**overrides):
                                     "protocol": "TCP"}]}]}]})
         for j in range(n_rules)])
     eng.regenerate()
+    return eng
+
+
+def serve_engine(**overrides):
+    """cfg5 built through the port's engine API (``cfg5_engine_world``) at
+    ``PRESET``'s width; ``overrides`` are further ``DaemonConfig`` fields.
+    → (engine, its config, host seconds)."""
+    from cilium_tpu_torch.runtime import DaemonConfig, Engine
+    from cilium_tpu_torch.runtime.datapath import TorchDatapath
+    from cilium_tpu_torch.world import cfg5_sizes
+    smoke = PRESET == "smoke"
+    _ids, _rules, cap, _flows, batch = cfg5_sizes(smoke)
+    kw = dict(device=DEVICE, ct_capacity=cap, batch_size=batch,
+              v4_only=True, auto_regen=False, pipeline_inflight=2,
+              pipeline_flush_ms=1.0, ct_gc_chunk_rows=SERVE_GC_CHUNK,
+              audit_max_rows=512, flowlog_mode="none")
+    kw.update(overrides)
+    cfg = DaemonConfig(**kw)
+    t0 = time.perf_counter()
+    eng = cfg5_engine_world(Engine(cfg, datapath=TorchDatapath(cfg)),
+                            port_modules(), smoke)
     return eng, cfg, time.perf_counter() - t0
 
 
@@ -2071,7 +2181,25 @@ class DispatchLog:
     lock around each whole call makes that order the stream's. A batch the
     smoke submitted whole (``own``) reaches the datapath as it was
     submitted, on the pipeline's direct path, and is kept by reference;
-    any other (a staged, coalesced batch) is copied."""
+    any other (a staged, coalesced batch) is copied.
+
+    It also times each part of a single-device ``classify_async``, by
+    wrapping the datapath's own steps on the instance: ``pack``
+    (``_columnar`` + ``_pack_wire``), ``upload`` (``_upload_wire``),
+    ``step`` (``_classify``, under ``_ct_lock``) and ``fetch``
+    (``_fetch``); ``time(obj, attr, name)`` times any other call so.
+    ``window(label, edge)`` marks where a window starts or ends (``edge``
+    "start" or "end", the pipeline drained) with ``window_counters()`` and
+    ``host_probe()`` there; ``summary()`` → each window's medians of every
+    timer, the counters' change over it and the probes at its edges. On
+    the card each step also records a CUDA event at its start and end:
+    ``step_device`` is the device's span between them, ``step_lag`` how
+    long after the host's return from the step the device reached its
+    end (timed from an event recorded at the window's start, the device
+    idle there): near 0 while the host's launches hold the device back,
+    the queued work's time when the device holds the host back."""
+
+    PARTS = ("pack", "upload", "step", "fetch")
 
     def __init__(self, dp):
         import threading
@@ -2079,20 +2207,106 @@ class DispatchLog:
         self.entries = []
         self.lock = threading.Lock()
         self.owned = {}
+        self.n_steps = 0
         self.async_ms, self.finalize_ms, self.place_ms = [], [], []
+        # every timer's host ms, call by call, and the windows' marks
+        self.ms = {"classify_async": self.async_ms,
+                   "finalize": self.finalize_ms}
+        self.marks = {}
+        self._columnar_ms = 0.0
         # (host ms, tensors placed whole, delta rows) of each patch; the
         # dispatches that reached the datapath with a host-only ``_``
         # column in them, and the widest wire uploaded (words a row): the
         # pack reads only the wire's own columns
         self.patches, self.host_cols, self.wire_words = [], 0, 0
+        for attr, name in (("_columnar", "columnar"), ("_pack_wire", "pack"),
+                           ("_classify", "step"), ("_fetch", "fetch")):
+            if hasattr(dp, attr):
+                self.time(dp, attr, name)
+        # (host s, event) at each step's start and end, on the card
+        self.step_events = []
+        if DEVICE == "cuda" and hasattr(dp, "_classify"):
+            dp._classify = self._evented(dp._classify)
         self._async, self._sweep = dp.classify_async, dp.sweep_step
         self._patch, self._remesh = dp.place_patch, dp.remesh
-        self._upload = dp._upload_wire
+        self._upload = self.timed(dp._upload_wire, "upload")
         dp._upload_wire = self.upload_wire
         dp.classify_async = self.classify_async
         dp.sweep_step = self.sweep_step
         dp.place_patch = self.place_patch
         dp.remesh = self.remesh
+
+    def timed(self, real, name):
+        """``real``, adding the host ms of each call to the timer ``name``
+        (``columnar``'s ms are carried into the next ``pack``)."""
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                ms = (time.perf_counter() - t0) * 1e3
+                if name == "columnar":
+                    self._columnar_ms = ms
+                else:
+                    if name == "pack":
+                        ms, self._columnar_ms = ms + self._columnar_ms, 0.0
+                    self.ms.setdefault(name, []).append(ms)
+        return call
+
+    def time(self, obj, attr, name):
+        """Time every call of ``obj.attr`` (wrapped on the instance)."""
+        self.ms.setdefault(name, [])
+        setattr(obj, attr, self.timed(getattr(obj, attr), name))
+
+    def _evented(self, step):
+        import torch
+
+        def call(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            h0 = time.perf_counter()
+            try:
+                return step(*args, **kw)
+            finally:
+                h1 = time.perf_counter()
+                ev[1].record()
+                self.step_events.append((h0, ev[0], h1, ev[1]))
+        return call
+
+    def window(self, label, edge):
+        ref = None
+        if DEVICE == "cuda":
+            import torch
+            ref = torch.cuda.Event(enable_timing=True)
+            ref.record()
+            ref = (time.perf_counter(), ref)
+        self.marks[(label, edge)] = (
+            {k: len(v) for k, v in self.ms.items()}, window_counters(),
+            host_probe(), (len(self.step_events), ref))
+
+    def summary(self):
+        import numpy as np
+        res = {}
+        labels = sorted({lb for lb, _e in self.marks},
+                        key=lambda lb: self.marks[(lb, "start")][0]["step"])
+        for lb in labels:
+            (i0, c0, p0, (e0, ref)), (i1, c1, p1, (e1, _r)) = \
+                self.marks[(lb, "start")], self.marks[(lb, "end")]
+            med = {k: float(np.median(v[i0[k]:i1[k]]))
+                   for k, v in self.ms.items() if i1.get(k, 0) > i0.get(k, 0)}
+            med["dispatches"] = i1["step"] - i0["step"]
+            steps = self.step_events[e0:e1]
+            if ref is not None and steps:
+                h_ref, ev_ref = ref
+                med["step_device"] = float(np.median(
+                    [a.elapsed_time(b) for _h0, a, _h1, b in steps]))
+                med["step_lag"] = float(np.median(
+                    [ev_ref.elapsed_time(b) - (h1 - h_ref) * 1e3
+                     for _h0, _a, h1, b in steps]))
+            res[lb] = {"median_ms": med, "counters": {
+                k: c1[k] - c0.get(k, 0) for k in c1
+                if c1[k] != c0.get(k, 0)}, "probe": {"start": p0, "end": p1}}
+        return res
 
     def own(self, batch):
         """Mark ``batch`` as the smoke's, never written after submit."""
@@ -2114,6 +2328,7 @@ class DispatchLog:
             entry = {"snap": snap, "now": now, "result": None,
                      "batch": mine, "pre_steered": pre_steered}
             self.entries.append(("step", entry))
+            self.n_steps += 1
 
         def finalize():
             t0 = time.perf_counter()
@@ -2154,7 +2369,92 @@ class DispatchLog:
         return res
 
     def steps(self):
-        return sum(1 for kind, _e in self.entries if kind == "step")
+        return self.n_steps
+
+
+#: ``torch.cuda.memory_stats`` counters read at a window's edges
+DEVICE_ALLOC_KEYS = ("num_alloc_retries", "num_device_alloc",
+                     "num_device_free", "num_sync_all_streams",
+                     "segment.all.allocated", "segment.all.freed")
+
+
+def thread_cpu_s():
+    """CPU seconds (user + system) of each thread of this process, from
+    ``/proc/self/task``, keyed ``cpu_s.<name>``: a Python thread's name,
+    else the kernel's name of the thread and its id. Empty where there is
+    no ``/proc``."""
+    import threading
+    names = {t.native_id: t.name for t in threading.enumerate()}
+    tick = os.sysconf("SC_CLK_TCK")
+    res = {}
+    try:
+        tids = os.listdir("/proc/self/task")
+    except OSError:
+        return res
+    for tid in tids:
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                stat = f.read()
+        except OSError:               # the thread ended meanwhile
+            continue
+        comm = stat[stat.index("(") + 1:stat.rindex(")")]
+        fields = stat[stat.rindex(")") + 2:].split()
+        name = names.get(int(tid)) or f"{comm}.{tid}"
+        res[f"cpu_s.{name}"] = (int(fields[11]) + int(fields[12])) / tick
+    return res
+
+
+def window_counters():
+    """What a window's edges read: each thread's CPU seconds
+    (``thread_cpu_s``), Python's GC collections, the device caching
+    allocator's counters (``DEVICE_ALLOC_KEYS``) and every counter of the
+    pinned host allocator that the installed torch exposes
+    (``torch.cuda.host_memory_stats``), prefixed ``host.``; the
+    allocators' only on the card."""
+    import gc
+
+    import torch
+    res = thread_cpu_s()
+    res["gc.collections"] = sum(g["collections"] for g in gc.get_stats())
+    if DEVICE != "cuda":
+        return res
+    dev = torch.cuda.memory_stats(DEVICE)
+    res.update({k: int(dev.get(k, 0)) for k in DEVICE_ALLOC_KEYS})
+    host = getattr(torch.cuda, "host_memory_stats", None)
+    for k, v in (host() if host is not None else {}).items():
+        if isinstance(v, (int, float)):
+            res[f"host.{k}"] = v
+    return res
+
+
+#: the device caching allocator's state read at a window's edges: the
+#: blocks it has handed out, its segments and the bytes it holds
+DEVICE_ALLOC_STATE = ("active.all.current", "segment.all.current",
+                      "reserved_bytes.all.current")
+
+
+def host_probe():
+    """What the host can do at this moment, read where the pipeline is
+    idle: ``spin_ms``, a pure-Python loop (the interpreter's speed: the
+    host's clock rate and this thread's share of a core); the process's
+    resident memory (``VmRSS_kB``, where ``/proc/self/status`` has it);
+    and on the card the device allocator's ``DEVICE_ALLOC_STATE``."""
+    import torch
+    t0 = time.perf_counter()
+    sum(i * i for i in range(200_000))
+    res = {"spin_ms": (time.perf_counter() - t0) * 1e3}
+    if DEVICE == "cuda":
+        dev = torch.cuda.memory_stats(DEVICE)
+        res.update({k: int(dev.get(k, 0)) for k in DEVICE_ALLOC_STATE})
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                key, _, val = line.partition(":")
+                if key == "VmRSS":
+                    res["VmRSS_kB"] = int(val.split()[0])
+    except OSError:
+        pass
+    return res
 
 
 class Feed:
@@ -2219,87 +2519,116 @@ class Feed:
         return self
 
 
-def fold_timers(eng):
-    """Host ms of each of the engine's per-batch finalize folds (flow
-    metrics, the per-rule hit counters, the flight recorder), kept per
-    call: the host work a finalized batch costs the pipeline's worker
-    beside the datapath's own. → {fold: [ms, ...]}."""
-    timers = {}
+def fold_timers(eng, log):
+    """Time on ``log`` (a ``DispatchLog``) each of the engine's per-batch
+    finalize folds: the counters, flow metrics, the flight recorder, the
+    auditor's capture, the per-rule hit counters and the CT-salvage grace
+    window, the host work a finalized batch costs the pipeline's worker
+    beside the datapath's own. → {fold: [ms, ...]}, ``log.ms``'s lists."""
+    folds = {"metrics": (eng.metrics, "add_batch"),
+             "flowmetrics": (eng.flowmetrics, "add_batch"),
+             "blackbox": (eng.blackbox, "record_verdicts"),
+             "audit_capture": (eng.auditor, "maybe_capture"),
+             "rule_hits": (eng, "_fold_rule_hits"),
+             "salvage": (eng, "_ct_salvage_apply")}
+    for name, (obj, attr) in folds.items():
+        log.time(obj, attr, name)
+    return {name: log.ms[name] for name in folds}
 
-    def timed(obj, attr, name):
-        real = getattr(obj, attr)
-        timers[name] = []
 
-        def call(*args, **kw):
-            t0 = time.perf_counter()
-            try:
-                return real(*args, **kw)
-            finally:
-                timers[name].append((time.perf_counter() - t0) * 1e3)
-        setattr(obj, attr, call)
-    timed(eng.flowmetrics, "add_batch", "flowmetrics")
-    timed(eng, "_fold_rule_hits", "rule_hits")
-    timed(eng.blackbox, "record_verdicts", "blackbox")
-    return timers
+def worker_timers(eng, log):
+    """Time on ``log`` what the pipeline's worker does with each batch:
+    the engine's dispatch (``engine_dispatch``, the datapath's
+    ``classify_async`` inside it) and finalize (``engine_finalize``, the
+    datapath's finalize and the folds inside it), and each fold
+    (``fold_timers``). Starts the engine's pipeline."""
+    fold_timers(eng, log)
+    pipe = eng.start_pipeline()
+    dispatch = pipe._dispatch_fn
+
+    def engine_dispatch(*args, **kw):
+        return log.timed(dispatch(*args, **kw), "engine_finalize")
+    pipe._dispatch_fn = log.timed(engine_dispatch, "engine_dispatch")
+
+
+class PlainReplay:
+    """A second ``TorchDatapath`` of ``cfg``'s geometry on the same device
+    with ``fused_kernels="off"``, fed a ``DispatchLog``'s dispatches, GC
+    ticks and re-meshes in order (a full ``place`` of each snapshot a
+    dispatch used, and again after a re-mesh): every out column, counter,
+    GC result and re-mesh count must equal the engine's. ``feed(log)``
+    takes all the log holds, every dispatch of it finalized, and empties
+    it (its batches and copies freed as it goes), so that one replay can
+    follow a log in parts; the caller compares the CT arrays at the
+    end."""
+
+    def __init__(self, cfg):
+        import dataclasses
+
+        from cilium_tpu_torch.runtime.datapath import TorchDatapath
+        self.plain = TorchDatapath(dataclasses.replace(cfg,
+                                                       fused_kernels="off"))
+        self.placed = self.snap = None
+        self.n_steps = self.n_gc = 0
+
+    def feed(self, log):
+        import numpy as np
+        plain = self.plain
+        with log.lock:
+            entries, log.entries = log.entries, []
+            log.owned.clear()
+        for i, (kind, e) in enumerate(entries):
+            entries[i] = None
+            if kind == "gc":
+                now, chunk, slash, want = e
+                got = plain.sweep_step(now, chunk, slash)
+                check(got == want, f"serve: GC tick {self.n_gc}: {got} != "
+                                   f"{want}")
+                self.n_gc += 1
+                continue
+            if kind == "remesh":
+                live, floor, want = e
+                got = plain.remesh(live, salvage_floor=floor)
+                for k in ("to", "ct_capacity", "ct_salvaged", "ct_lost",
+                          "ct_dropped", "salvage_source"):
+                    check(got[k] == want[k], f"remesh to {live}: {k} "
+                          f"{want[k]} on the kernel path, {got[k]} plain")
+                self.snap = None         # the new mesh needs a placement
+                continue
+            check(e["result"] is not None, "serve: a dispatch never finalized")
+            if e["snap"] is not self.snap:
+                self.snap = e["snap"]
+                self.placed = plain.place(self.snap)
+            out, counters = plain.classify_async(
+                self.placed, self.snap, e["batch"], e["now"],
+                e["pre_steered"])()
+            n = self.n_steps
+            for got, want in zip((out, counters), e["result"]):
+                check(set(got) == set(want), "serve: output keys differ")
+                for k in want:
+                    if got[k].dtype == want[k].dtype \
+                            and np.array_equal(got[k], want[k]):
+                        continue
+                    if got[k].ndim == 0:
+                        raise SmokeFailure(
+                            f"serve: dispatch {n} (now {e['now']}) {k}: "
+                            f"kernel path {want[k]}, plain {got[k]}")
+                    bad = np.nonzero((got[k] != want[k]).reshape(
+                        got[k].shape[0], -1).any(-1))[0]
+                    raise SmokeFailure(
+                        f"serve: dispatch {n} (now {e['now']}) {k} differs "
+                        f"from the plain path in {len(bad)} rows, first "
+                        f"{list(bad[:5])}: kernel path {want[k][bad[:3]]}, "
+                        f"plain {got[k][bad[:3]]}")
+            self.n_steps += 1
+        return self
 
 
 def replay_plain(log, cfg):
-    """Feed every logged dispatch, GC tick and re-mesh, in order, to a
-    second ``TorchDatapath`` of the same geometry on the same device with
-    ``fused_kernels="off"`` (a full ``place`` of each snapshot a dispatch
-    used, and again after a re-mesh): every out column, counter, GC result
-    and re-mesh count must equal the engine's, and the CT arrays at the
-    end. Frees the log as it goes. → (plain datapath, dispatches compared,
-    ticks)."""
-    import dataclasses
-
-    import numpy as np
-    from cilium_tpu_torch.runtime.datapath import TorchDatapath
-    plain = TorchDatapath(dataclasses.replace(cfg, fused_kernels="off"))
-    placed = snap = None
-    n_steps = n_gc = 0
-    for i, (kind, e) in enumerate(log.entries):
-        log.entries[i] = None
-        if kind == "gc":
-            now, chunk, slash, want = e
-            got = plain.sweep_step(now, chunk, slash)
-            check(got == want, f"serve: GC tick {n_gc}: {got} != {want}")
-            n_gc += 1
-            continue
-        if kind == "remesh":
-            live, floor, want = e
-            got = plain.remesh(live, salvage_floor=floor)
-            for k in ("to", "ct_capacity", "ct_salvaged", "ct_lost",
-                      "ct_dropped", "salvage_source"):
-                check(got[k] == want[k], f"remesh to {live}: {k} "
-                      f"{want[k]} on the kernel path, {got[k]} plain")
-            snap = None                  # the new mesh needs a placement
-            continue
-        check(e["result"] is not None, "serve: a dispatch never finalized")
-        if e["snap"] is not snap:
-            snap = e["snap"]
-            placed = plain.place(snap)
-        out, counters = plain.classify_async(
-            placed, snap, e["batch"], e["now"], e["pre_steered"])()
-        for got, want in zip((out, counters), e["result"]):
-            check(set(got) == set(want), "serve: output keys differ")
-            for k in want:
-                if got[k].dtype == want[k].dtype \
-                        and np.array_equal(got[k], want[k]):
-                    continue
-                if got[k].ndim == 0:
-                    raise SmokeFailure(
-                        f"serve: dispatch {n_steps} (now {e['now']}) {k}: "
-                        f"kernel path {want[k]}, plain {got[k]}")
-                bad = np.nonzero((got[k] != want[k]).reshape(
-                    got[k].shape[0], -1).any(-1))[0]
-                raise SmokeFailure(
-                    f"serve: dispatch {n_steps} (now {e['now']}) {k} differs "
-                    f"from the plain path in {len(bad)} rows, first "
-                    f"{list(bad[:5])}: kernel path {want[k][bad[:3]]}, "
-                    f"plain {got[k][bad[:3]]}")
-        n_steps += 1
-    return plain, n_steps, n_gc
+    """``PlainReplay`` of all of ``log``. → (plain datapath, dispatches
+    compared, ticks)."""
+    r = PlainReplay(cfg).feed(log)
+    return r.plain, r.n_steps, r.n_gc
 
 
 def phase_serve(seed, card, profile=False):
@@ -2334,7 +2663,7 @@ def phase_serve(seed, card, profile=False):
     dp = eng.datapath
     patch0 = dict(dp.patch_stats)
     log = DispatchLog(dp)
-    folds = fold_timers(eng)
+    folds = fold_timers(eng, log)
 
     clock = [50_000]
     clock_lock = threading.Lock()
@@ -4294,7 +4623,7 @@ class DrainGate:
 
 
 def ddos_storm(eng, pkg, smoke, seed, profile_plateau=None, at_plateau=None,
-               own=None):
+               own=None, window=None):
     """``bench.py``'s cfg6 drop storm (``ddos_bench``) on ``eng``, an
     engine of ``ddos_config`` and ``ddos_world``, in logical time (manual
     ``overload_step``/``sweep_step``/``resource_step`` ticks). ``pkg``
@@ -4317,7 +4646,9 @@ def ddos_storm(eng, pkg, smoke, seed, profile_plateau=None, at_plateau=None,
     saturated iteration of 1a (``run``) under a profiler;
     ``at_plateau(eng, now)`` is called once at the end of 1a with the
     pipeline drained; ``own(batch)`` sees every batch before it is
-    submitted.
+    submitted; ``window(label, edge)`` is called where the pre-storm
+    ("pre") and post-storm ("post") flows/s windows start and end (``edge``
+    "start" or "end"), the pipeline drained at each.
 
     → a result dict. ``trace`` holds one record an iteration of the
     wall-clock-free fields (the ladder's level, queue fraction and ct /
@@ -4329,6 +4660,7 @@ def ddos_storm(eng, pkg, smoke, seed, profile_plateau=None, at_plateau=None,
     p = ddos_params(smoke)
     cfg = eng.config
     own = own or (lambda b: b)
+    window = window or (lambda label, edge: None)
     n, flood = p["batch"], p["flood"]
     drain_per_iter = flood // 2 + 1
     harvester = Harvester()
@@ -4388,14 +4720,16 @@ def ddos_storm(eng, pkg, smoke, seed, profile_plateau=None, at_plateau=None,
             submit_legit()
         pump_legit(True)
 
-    def fps_of(count):
+    def fps_of(count, label):
         """Legit flows/s: the median of ``DDOS_FPS_WINDOWS`` windows of
         ``count`` batches each. → (median, every window's)."""
         rates = []
+        window(label, "start")
         for _ in range(DDOS_FPS_WINDOWS):
             t0 = time.perf_counter()
             run_legit(count)
             rates.append(count * n / max(time.perf_counter() - t0, 1e-9))
+        window(label, "end")
         return float(np.median(rates)), rates
 
     ledger = {"mismatches": 0, "forecast_iter": None}
@@ -4431,7 +4765,7 @@ def ddos_storm(eng, pkg, smoke, seed, profile_plateau=None, at_plateau=None,
     L[0] += 1
     run_legit(2)
     legit_ms.clear()
-    pre_fps, pre_windows = fps_of(p["fps"])
+    pre_fps, pre_windows = fps_of(p["fps"], "pre")
     overload_tick()
 
     # the ledger-overhead attestation (bench.py's D/A/D/A windows)
@@ -4550,7 +4884,7 @@ def ddos_storm(eng, pkg, smoke, seed, profile_plateau=None, at_plateau=None,
         if st["level"] == 0 and occ <= cfg.ct_pressure_low:
             break
     occ_final = float(eng.metrics.gauges.get("ct_occupancy", 0.0))
-    post_fps, post_windows = fps_of(p["fps"])
+    post_fps, post_windows = fps_of(p["fps"], "post")
     ladder = eng.overload_status() or {}
     check(eng.drain(timeout=300), "ddos: the pipeline did not drain")
     for _ in range(200):
@@ -4648,6 +4982,19 @@ def phase_ddos(seed, card, report=None):
              f"{cfg.ct_gc_emergency_ttl_slash_s} s"]
     dp = eng.datapath
     log = DispatchLog(dp)
+    worker_timers(eng, log)
+    replay = PlainReplay(cfg)
+    first_replay = {}
+
+    def window(label, edge):
+        if (label, edge) == ("post", "start"):
+            # the dispatches so far replayed and dropped: the post-storm
+            # window runs without the log's copies of the storm's batches
+            t1 = time.perf_counter()
+            replay.feed(log)
+            first_replay.update(s=time.perf_counter() - t1,
+                                steps=replay.n_steps)
+        log.window(label, edge)
     pkg = SimpleNamespace(empty_batch=empty_batch,
                           shed_new_rows=shed_new_rows,
                           OVERLOAD_SHED_NEW=OVERLOAD_SHED_NEW)
@@ -4678,8 +5025,9 @@ def phase_ddos(seed, card, report=None):
     fk.reset_launches()
     t0 = time.perf_counter()
     res = ddos_storm(eng, pkg, smoke, seed, profile_plateau, at_plateau,
-                     own=log.own)
-    storm_s = time.perf_counter() - t0
+                     own=log.own, window=window)
+    enqueue = log.summary()
+    storm_s = time.perf_counter() - t0 - first_replay["s"]
     launches = dict(fk.LAUNCHES)
     dispatched = log.steps()
     check(dispatched == res["dispatches"],
@@ -4689,7 +5037,8 @@ def phase_ddos(seed, card, report=None):
         check(k == dispatched, f"ddos: {name} launched {k} times for "
                                f"{dispatched} dispatches")
     why = ddos_gate(res, cfg, OVERLOAD_SHED_NEW)
-    check(not why, f"ddos: the cfg6 gate failed: {why}")
+    check(not why, f"ddos: the cfg6 gate failed: {why}; the worker by "
+                   f"window {json.dumps(enqueue)}")
 
     # K2 at the saturated table: flood keys, a table at the plateau
     rng = np.random.default_rng(seed + 7)
@@ -4732,9 +5081,11 @@ def phase_ddos(seed, card, report=None):
     evicted_now, failed_now = int(ins[1][5]), int(ins[1][4].sum())
     del ins
 
-    # every dispatch and GC tick against the plain path, then the CT
+    # every dispatch and GC tick since the post-storm window's start
+    # against the plain path, then the CT
     t1 = time.perf_counter()
-    plain, n_steps, n_gc = replay_plain(log, cfg)
+    replay.feed(log)
+    plain, n_steps, n_gc = replay.plain, replay.n_steps, replay.n_gc
     want_ct, got_ct = eng.ct_arrays(), plain.ct_arrays()
     for k in want_ct:
         check(np.array_equal(want_ct[k], got_ct[k]),
@@ -4771,6 +5122,11 @@ def phase_ddos(seed, card, report=None):
         f"{r['post_fps'] / max(r['pre_fps'], 1e-9):.4f}); attestation "
         f"{json.dumps(r['attestation'])} [{card}]",
         f"ddos: audit {json.dumps(r['audit'])}",
+        f"ddos: the worker by window (host ms medians of classify_async, "
+        f"its parts and its finalize, of the engine's dispatch and finalize"
+        f" and of the finalize's folds; the change over the window of each "
+        f"thread's CPU seconds and the allocators' counters):"
+        f" {json.dumps(enqueue)} [{card}]",
         f"ddos: K2 at the saturated table (occupancy {plateau['occ']:.4f},"
         f" {hits} of {fwd.shape[0]} flood keys hit) exact, ms={cold:.6f} "
         f"hot_ms={hot:.6f} host_ms={host:.6f} path_ms="
@@ -4783,8 +5139,10 @@ def phase_ddos(seed, card, report=None):
         f"{evicted_now} evictions, {failed_now} CT_FULL; slots, fails, keys "
         f"and stamps equal on {DEVICE} and on the CPU",
         f"ddos: {n_steps} dispatches and {n_gc} GC ticks replayed on a "
-        f"plain TorchDatapath in {replay_s:.3f} s: every out column, "
-        f"counter, GC result and the CT arrays equal",
+        f"plain TorchDatapath, the {first_replay['steps']} before the "
+        f"post-storm window at its start ({first_replay['s']:.3f} s, not in "
+        f"the storm's seconds), the rest at the end ({replay_s:.3f} s): "
+        f"every out column, counter, GC result and the CT arrays equal",
         f"ddos launches: {json.dumps(launches)} for {dispatched} "
         f"dispatches"]
 

@@ -412,5 +412,6 @@ def test_phase_parity_on_the_card(smoke, device):
         make_world("cfg5", seed=0, device=device, preset="smoke"),
         make_world("mixed", seed=0, device=device, preset="smoke"), "test")
     assert lines[-1].startswith("parity launches")
-    # a line a part, part (e)'s CT_FULL line, the launches
-    assert len(lines) == len(smoke.PARITY_PARTS) + 2
+    # a line a part, part (e)'s CT_FULL line, part (f)'s auditor line,
+    # the launches
+    assert len(lines) == len(smoke.PARITY_PARTS) + 3

@@ -102,3 +102,74 @@ def test_cfg6_storm_equals_jax_iteration_for_iteration():
         assert r["forecast_iter"] < r["shed_new_iter"]
     phases = {rec["phase"] for rec in rt["trace"]}
     assert phases == {"1a", "1b", "1b-end", "recover"}
+
+
+def test_worker_split_covers_both_windows(monkeypatch):
+    """Phase ddos's worker split (``chip_smoke.DispatchLog``'s timers and
+    windows, ``worker_timers``) and its replay in two parts
+    (``PlainReplay``) on the port's storm at the smoke size: each of the
+    pre-storm and post-storm windows holds every legit dispatch of its
+    ``DDOS_FPS_WINDOWS`` windows and a median of every timer; the parts
+    of a dispatch (pack, upload, the step, the fetch) add up to no more
+    than its whole ``classify_async``, which is inside the engine's
+    dispatch, and the datapath's finalize and every fold are inside the
+    engine's finalize; the windows' edges carry their probes and the
+    pipeline worker's CPU seconds. The log is empty when the post-storm
+    window starts, and the replay, fed before it and at the end, holds
+    every dispatch and the CT equal."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    cfg = make_config("torch", **chip_smoke.ddos_config(True))
+    m = mods("torch")
+    eng = chip_smoke.ddos_world(m.engine.Engine(
+        cfg, datapath=make_datapath("torch", cfg)))
+    log = chip_smoke.DispatchLog(eng.datapath)
+    chip_smoke.worker_timers(eng, log)
+    replay = chip_smoke.PlainReplay(cfg)
+    before_post = {}
+
+    def window(label, edge):
+        if (label, edge) == ("post", "start"):
+            replay.feed(log)
+            before_post.update(steps=replay.n_steps, entries=len(log.entries),
+                               owned=len(log.owned))
+        log.window(label, edge)
+    ns = SimpleNamespace(
+        empty_batch=importlib.import_module(
+            "cilium_tpu_torch.kernels.records").empty_batch,
+        shed_new_rows=importlib.import_module(
+            "cilium_tpu_torch.shim.feeder").shed_new_rows,
+        OVERLOAD_SHED_NEW=importlib.import_module(
+            "cilium_tpu_torch.pipeline.guard").OVERLOAD_SHED_NEW)
+    try:
+        res = chip_smoke.ddos_storm(eng, ns, True, SEED, own=log.own,
+                                    window=window)
+        replay.feed(log)
+        assert_ct_equal(eng.ct_arrays(), replay.plain.ct_arrays())
+    finally:
+        eng.stop()
+    n = res["dispatches"]
+    assert before_post["entries"] == before_post["owned"] == 0
+    assert 0 < before_post["steps"] < replay.n_steps == log.steps() == n
+    per_window = chip_smoke.DDOS_FPS_WINDOWS * chip_smoke.ddos_params(
+        True)["fps"]
+    summary = log.summary()
+    assert set(summary) == {"pre", "post"}
+    timers = (chip_smoke.DispatchLog.PARTS
+              + ("classify_async", "finalize", "engine_dispatch",
+                 "engine_finalize", "metrics", "flowmetrics", "blackbox",
+                 "audit_capture", "rule_hits", "salvage"))
+    for w in summary.values():
+        assert w["median_ms"]["dispatches"] == per_window
+        assert all(w["median_ms"][k] > 0 for k in timers), w["median_ms"]
+        assert set(w["probe"]) == {"start", "end"}
+        assert w["probe"]["start"]["spin_ms"] > 0
+        assert w["counters"].get("cpu_s.pipeline-worker", 0) >= 0
+    ms = log.ms
+    for k in ("classify_async", "finalize", "engine_dispatch",
+              "engine_finalize", "metrics", "flowmetrics") + log.PARTS:
+        assert len(ms[k]) == n, k
+    for i in range(n):
+        parts = sum(ms[p][i] for p in log.PARTS)
+        assert parts <= ms["classify_async"][i] <= ms["engine_dispatch"][i]
+        folds = sum(ms[f][i] for f in ("metrics", "flowmetrics"))
+        assert ms["finalize"][i] + folds <= ms["engine_finalize"][i], i

@@ -3,16 +3,19 @@
 Each part of the phase (``chip_smoke.PARITY_PARTS``: cfg5's and mixed's
 churn at the smoke preset, ``test_lb.py``'s service world,
 ``test_parity.py``'s world with enforcement never and always and batch by
-batch against the sequential oracle, and cfg5 at CT_FULL on a seeded
-4,096-slot table with a whole-table sweep before its last batch) runs
-through the phase's own loop, ``chip_smoke.parity_part``, twice:
+batch against the sequential oracle, cfg5 at CT_FULL on a seeded
+4,096-slot table with a whole-table sweep before its last batch, and
+part (a)'s traffic through the port's served path, ``Engine.submit`` on
+cfg5 built through the engine, with the auditor replaying every row)
+runs through the phase's own loop, ``chip_smoke.parity_part``, twice:
 
 - on the port (``DEVICE = "cpu"``: the kernel wrappers run their plain
   versions), every batch and the live CT after it against the port's
   oracle, exactly as on the card;
 - on the JAX package's ``classify_step`` over the same batches (the
   port's run replayed), against ``oracle/``, on the JAX compile of the
-  same world: cfg5 from ``bench.build_config5("smoke")``, mixed from
+  same world: cfg5 from ``bench.build_config5("smoke")`` (part (f)'s
+  through the JAX package's engine API, as the port's), mixed from
   ``tests/test_torch_compile.py``, the rest from ``chip_smoke``'s
   declarations with the JAX package's modules.
 
@@ -67,9 +70,23 @@ def test_copied_worlds_are_the_references():
 
 @functools.lru_cache(maxsize=None)
 def jax_snapshot(part):
-    """The JAX package's compile of part ``part``'s world."""
+    """The JAX package's compile of part ``part``'s world (part (f)'s
+    through the JAX package's engine, as ``chip_smoke.serve_engine``
+    builds the port's)."""
     if part in ("cfg5", "ctfull"):
         return bench.build_config5("smoke")[0]
+    if part == "engine":
+        from cilium_tpu.runtime.config import DaemonConfig
+        from cilium_tpu.runtime.datapath import FakeDatapath
+        from cilium_tpu.runtime.engine import Engine
+        z = cs.PARITY["smoke"]
+        cfg = DaemonConfig(ct_capacity=z["cfg5_cap"],
+                           batch_size=z["cfg5_rows"], v4_only=True,
+                           auto_regen=False)
+        eng = cs.cfg5_engine_world(
+            Engine(cfg, datapath=FakeDatapath(cfg)), JAX, smoke=True)
+        eng.stop()
+        return eng.active.snapshot
     if part == "mixed":
         return compiled(JAX.pkg, "mixed")[0]
     if part == "services":
@@ -152,6 +169,10 @@ def test_part_equals_the_reference(part):
 
     if part == "ctfull":
         cs.ctfull_checks(res_t, spec)
+    if part == "engine":
+        assert len(res_t.batches) == cs.PARITY["smoke"]["engine"]
+        assert "0 mismatched" in cs.engine_audit_line(spec, res_t, "cpu")
+        spec.engine.stop()
     snap_j = jax_snapshot(part)
     assert snap_j.world_index == spec.snap.world_index
     side = JaxSide(snap_j, spec.cap, spec.v4_only, spec.image)

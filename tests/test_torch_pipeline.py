@@ -307,3 +307,117 @@ def test_engine_submit_equals_jax_under_dispatch_faults(seed):
     assert et.datapath.wire_pool_stats()["in_flight"] == 0
     for e in engines:
         e.stop()
+
+
+# --------------------------------------------------------------------------- #
+# test_pipeline.py's engine helpers on either package, for the host suites'
+# mirrors (test_torch_observe.py, test_torch_audit.py)
+# --------------------------------------------------------------------------- #
+ORACLE = {"jax": "oracle", "torch": "cilium_tpu_torch.oracle"}
+HOST_MODS = {"config": "runtime.config", "datapath": "runtime.datapath",
+             "engine": "runtime.engine", "faults": "runtime.faults",
+             "metrics": "runtime.metrics", "api": "runtime.api",
+             "records": "kernels.records", "C": "utils.constants",
+             "ip": "utils.ip", "trace": "observe.trace",
+             "flowmetrics": "observe.flowmetrics",
+             "autotune": "observe.autotune", "audit": "observe.audit",
+             "blackbox": "observe.blackbox", "pipeline": "pipeline",
+             "scheduler": "pipeline.scheduler", "feeder": "shim.feeder",
+             "cli": "cli.main"}
+
+#: ``test_pipeline.py``'s policy: web may reach 10/8 on TCP 443
+POLICY = [{
+    "endpointSelector": {"matchLabels": {"app": "web"}},
+    "egress": [{"toCIDR": ["10.0.0.0/8"],
+                "toPorts": [{"ports": [{"port": "443",
+                                        "protocol": "TCP"}]}]}],
+}]
+PARITY_KEYS = ("allow", "reason", "status", "remote_identity", "svc",
+               "nat_dst", "nat_dport", "rnat", "rnat_src", "rnat_sport")
+
+
+def host(side):
+    """``side``'s modules by the short names of ``HOST_MODS`` (and ``pl``,
+    ``oracle``, ``empty_batch``, so that ``sub_batch`` takes it)."""
+    ns = {k: importlib.import_module(f"{PKG[side]}.{v}")
+          for k, v in HOST_MODS.items()}
+    ns["oracle"] = importlib.import_module(ORACLE[side])
+    return SimpleNamespace(side=side, pl=ns["pipeline"],
+                           empty_batch=ns["records"].empty_batch, **ns)
+
+
+def pkt(m, src, dst, sp, dp, flags=None, ep_id=1):
+    """``test_pipeline.py``'s ``pkt`` on ``m``'s package (an egress TCP
+    record, SYN by default)."""
+    C = m.C
+    s16, _ = m.ip.parse_addr(src)
+    d16, _ = m.ip.parse_addr(dst)
+    return m.oracle.PacketRecord(
+        s16, d16, sp, dp, C.PROTO_TCP, C.TCP_SYN if flags is None else flags,
+        False, ep_id, C.DIR_EGRESS, C.HTTP_METHOD_ANY, b"")
+
+
+def fake_engine(m, **kw):
+    """``test_pipeline.py``'s ``fake_engine``: each package's
+    ``FakeDatapath`` (the port's on the CPU)."""
+    kw.setdefault("ct_capacity", 4096)
+    kw.setdefault("auto_regen", False)
+    kw.setdefault("batch_size", 64)
+    if m.side == "torch":
+        kw.setdefault("device", "cpu")
+    cfg = m.config.DaemonConfig(**kw)
+    return m.engine.Engine(cfg, datapath=m.datapath.FakeDatapath(cfg))
+
+
+def mk_chunks(m, slot_of, n_chunks, rows_per_chunk, seed=11, repeats=False):
+    """``test_pipeline.py``'s ``mk_chunks`` on ``m``'s package: sub-full
+    chunks of fresh SYNs to allowed and denied destinations; with
+    ``repeats`` each later chunk also revisits an early flow with an
+    ACK."""
+    C = m.C
+    rng = np.random.default_rng(seed)
+    chunks = []
+    for c in range(n_chunks):
+        recs = []
+        for r in range(rows_per_chunk):
+            if repeats and c >= 2 and r == rows_per_chunk - 1:
+                recs.append(pkt(m, "192.168.1.10", "10.1.2.3", 41000, 443,
+                                flags=C.TCP_ACK))
+                continue
+            dp = int(rng.choice([443, 443, 80, 22]))
+            dst = f"10.{rng.integers(0, 2)}.2.{rng.integers(1, 250)}"
+            sp = 42000 + c * rows_per_chunk + r
+            if (c, r) == (0, 0):
+                sp, dp, dst = 41000, 443, "10.1.2.3"
+            recs.append(pkt(m, "192.168.1.10", dst, sp, dp))
+        chunks.append(m.records.batch_from_records(recs, slot_of))
+    return chunks
+
+
+def assert_parity(ser, piped, chunks):
+    """``test_pipeline.py``'s ``_assert_parity``: ``chunks`` through the
+    serial ``classify`` of ``ser`` and through ``piped.submit`` equal in
+    every out column, CT occupancy and drop counter. → the pipelined
+    outputs, the live count and the counters (to hold against the other
+    package's)."""
+    serial = [ser.classify(dict(ch), now=100 + i)
+              for i, ch in enumerate(chunks)]
+    tickets = [piped.submit(dict(ch), now=100 + i)
+               for i, ch in enumerate(chunks)]
+    assert piped.drain(timeout=30)
+    outs = []
+    for i, (t, want) in enumerate(zip(tickets, serial)):
+        got = t.result(timeout=5)
+        for k in PARITY_KEYS:
+            np.testing.assert_array_equal(
+                got[k], want[k], err_msg=f"chunk {i} field {k} diverged")
+        outs.append({k: np.asarray(got[k]).tolist() for k in PARITY_KEYS})
+    live = piped.ct_stats(now=200)["live"]
+    assert live == ser.ct_stats(now=200)["live"]
+    assert piped.metrics.packets_total == ser.metrics.packets_total
+    np.testing.assert_array_equal(piped.metrics.by_reason_dir,
+                                  ser.metrics.by_reason_dir)
+    return {"outs": outs, "live": live,
+            "packets": int(piped.metrics.packets_total),
+            "by_reason_dir": np.asarray(
+                piped.metrics.by_reason_dir).tolist()}
