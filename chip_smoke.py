@@ -3953,12 +3953,16 @@ VERDICT_COLS = ("allow", "reason", "redirect", "remote_identity",
                 "matched_rule", "lpm_prefix")
 
 
-def mesh_launch_check(launches, dispatched, flow_shards, k3, what):
-    """K1 and K2 launch once per flow shard a dispatch; K3 likewise on a
-    host-steered flow-only mesh, and never elsewhere."""
-    want = {"lpm_lookup_fused": flow_shards * dispatched,
+def mesh_launch_check(launches, dispatched, flow_shards, colocated, what):
+    """K2 launches once per flow shard a dispatch. The host-steered step
+    of a flow-only mesh whose shards share the card (``colocated``) runs
+    the stateless stages once over all rows: K1 and K3 once a dispatch.
+    Elsewhere K1 launches once per flow shard and K3 never (the policy
+    stage runs the split plain core)."""
+    want = {"lpm_lookup_fused":
+            dispatched if colocated else flow_shards * dispatched,
             "ct_probe_pair_fused": flow_shards * dispatched,
-            "policy_verdict_fused": flow_shards * dispatched if k3 else 0}
+            "policy_verdict_fused": dispatched if colocated else 0}
     check(dispatched > 0 and launches == want,
           f"mesh {what}: launches {launches}, want {want} for "
           f"{dispatched} dispatches")
@@ -4162,15 +4166,17 @@ def phase_mesh(seed, card, report):
             first = len(log.entries)
             lines += mesh_drill(eng, log, degraded, healed, now0 + 200, card)
             launches["d"] = dict(fk.LAUNCHES)
-            # every dispatch launches each kernel once per flow shard of
-            # the mesh that served it
-            width, want, steps = 4, 0, 0
+            # every dispatch launches K2 once per flow shard of the mesh
+            # that served it, K1 and K3 once (the shards share the card)
+            width, k2, steps = 4, 0, 0
             for kind, e in log.entries[first:]:
                 if kind == "remesh":
                     width = len(e[0])
                 elif kind == "step":
-                    want, steps = want + width, steps + 1
-            check(launches["d"] == dict.fromkeys(launches["d"], want),
+                    k2, steps = k2 + width, steps + 1
+            want = {"lpm_lookup_fused": steps, "ct_probe_pair_fused": k2,
+                    "policy_verdict_fused": steps}
+            check(launches["d"] == want,
                   f"mesh d: launches {launches['d']}, want {want} for "
                   f"{steps} dispatches")
             lines.append(f"mesh d launches: {json.dumps(launches['d'])} "

@@ -155,9 +155,13 @@ def classify_pre_ct(tensors, batch, world_index, *, v4_only: bool = False,
 
 def ct_update_stage(ct, fwd_keys, proto, tcp_flags, hit, hit_slot, reply,
                     new, allow, rev_nat_vals, now,
-                    probe_depth: int = PROBE_DEPTH, inplace: bool = False):
+                    probe_depth: int = PROBE_DEPTH, inplace: bool = False,
+                    shards: int = 1):
     """CT insert-when-full + aggregate apply + the batch-start rev-NAT
-    read. → (new_ct, ct_full [N] bool, entry_rnat [N] int32, n_evicted)."""
+    read. → (new_ct, ct_full [N] bool, entry_rnat [N] int32, n_evicted).
+    ``shards`` > 1: ``ct`` is a shard-major table and the rows are
+    shard-major (``conntrack.probe_window``); ``hit_slot`` holds global
+    slots."""
     want_insert = new & allow
     cap = ct["expiry"].shape[0]
     hit_slot = hit_slot.to(torch.int64)
@@ -170,7 +174,7 @@ def ct_update_stage(ct, fwd_keys, proto, tcp_flags, hit, hit_slot, reply,
     new_keys, new_created, zero_mask, slot_new, fail, n_evicted = \
         ctk.ct_insert_new(ct, fwd_keys, want_insert, now, probe_depth,
                           evict=True, protected=protected[:cap],
-                          inplace=inplace)
+                          inplace=inplace, shards=shards)
     ct_full = fail
     allow = allow & ~ct_full
     slot = torch.where(hit, hit_slot, slot_new.to(torch.int64))
@@ -221,13 +225,21 @@ def tally_by_reason_dir(reason, direction, counted):
 def classify_step(tensors, ct, batch, now, world_index=0, *,
                   probe_depth: int = PROBE_DEPTH, v4_only: bool = False,
                   rule_axis=None, lb_probe_depth: int = 8,
-                  fused: bool = True, inplace: bool = False):
+                  fused: bool = True, inplace: bool = False,
+                  shards: int = 1):
     """→ (out, new_ct, counters), with the reference's out columns and
     counters (u32 ones as int32 bit patterns: ``remote_identity``,
     ``nat_dst``, ``rnat_src`` and every counter). With ``rule_axis`` (a
     rule-sharded mesh) the policy stage runs the split plain core, as the
     reference does where its rules-axis psum must stay outside the
-    kernel; K1 and K2 still run with ``fused``."""
+    kernel; K1 and K2 still run with ``fused``.
+
+    ``shards`` > 1 is the steered step of that many flow shards on one
+    device (``parallel/mesh.make_sharded_classify_fn``): ``ct`` is their
+    shard-major table and the rows are their equal shard-major segments.
+    Only the probe pair (``fused.ct_probe_pair_sharded``) and the CT
+    update see the shards; every other stage runs once over all rows, and
+    the counters are the sums of the shards' own."""
     fused_policy = fused and rule_axis is None
     pre = classify_pre_ct(tensors, batch, world_index, v4_only=v4_only,
                           rule_axis=rule_axis,
@@ -240,8 +252,12 @@ def classify_step(tensors, ct, batch, now, world_index=0, *,
     fwd_keys, rev_keys = pre["fwd_keys"], pre["rev_keys"]
 
     # conntrack probe (batch-start snapshot)
-    probe = fk.ct_probe_pair_fused if fused else fk.ct_probe_pair_plain
-    fwd_slot, rev_slot = probe(ct, fwd_keys, rev_keys, now, probe_depth)
+    if shards > 1:
+        fwd_slot, rev_slot = fk.ct_probe_pair_sharded(
+            ct, fwd_keys, rev_keys, now, probe_depth, shards, fused=fused)
+    else:
+        probe = fk.ct_probe_pair_fused if fused else fk.ct_probe_pair_plain
+        fwd_slot, rev_slot = probe(ct, fwd_keys, rev_keys, now, probe_depth)
     est = valid & (fwd_slot >= 0)
     reply = valid & ~est & (rev_slot >= 0)
     new = valid & ~est & ~reply
@@ -265,7 +281,8 @@ def classify_step(tensors, ct, batch, now, world_index=0, *,
 
     new_ct, ct_full, entry_rnat, n_evicted = ct_update_stage(
         ct, fwd_keys, batch["proto"], batch["tcp_flags"], hit, hit_slot,
-        reply, new, allow, pre["rev_nat"], now, probe_depth, inplace=inplace)
+        reply, new, allow, pre["rev_nat"], now, probe_depth, inplace=inplace,
+        shards=shards)
     allow = allow & ~ct_full
     reason = torch.where(ct_full, int(C.DropReason.CT_FULL),
                          reason).to(torch.int32)

@@ -68,19 +68,35 @@ def ct_key_words_pair(batch):
     return fwd, reverse_key_words(fwd)
 
 
+def probe_window(keys, cap: int, shards: int = 1):
+    """Each key's probe window in a table of ``cap`` slots → ``slot(r)``,
+    the [N] int64 slot of every key's r-th probe. With ``shards`` > 1 the
+    table is that many equal power-of-two tables in slot-range order (a
+    co-located mesh's shard-major CT) and the rows are shard-major (row i
+    belongs to table ``i // (N // shards)``): each key walks its own
+    table's window, exactly as it would in that table alone."""
+    mask = cap // shards - 1
+    home = hash_words_u64(keys) & mask
+    if shards == 1:          # the one table starts at slot 0
+        return lambda r: (home + r) & mask
+    per = max(keys.shape[0] // shards, 1)
+    first = torch.arange(keys.shape[0], dtype=torch.int64,
+                         device=keys.device) // per * (mask + 1)
+    return lambda r: first + ((home + r) & mask)
+
+
 def ct_probe_core(tab_keys, expiry, keys, now,
-                  probe_depth: int = PROBE_DEPTH):
+                  probe_depth: int = PROBE_DEPTH, shards: int = 1):
     """tab_keys [cap,10], expiry [cap] (int32 bit patterns) → each key's
     first live matching slot [N] int32 (-1 = miss). Run once per
     orientation, this is the plain version of kernel K2
-    (``fused.ct_probe_pair_fused``)."""
+    (``fused.ct_probe_pair_fused``). ``shards``: see ``probe_window``."""
     now = _now(now)
-    cap = expiry.shape[0]
-    mask = cap - 1
-    base = hash_words_u64(keys) & mask
-    found = torch.full(base.shape, -1, dtype=torch.int64, device=keys.device)
+    slot = probe_window(keys, expiry.shape[0], shards)
+    found = torch.full((keys.shape[0],), -1, dtype=torch.int64,
+                       device=keys.device)
     for i in range(probe_depth):
-        s = (base + i) & mask
+        s = slot(i)
         live = u32(expiry[s]) > now
         eq = (tab_keys[s] == keys).all(dim=-1) & live
         found = torch.where((found < 0) & eq, s, found)
@@ -158,22 +174,27 @@ def _adopt(pending, claimed, keys_arr, keys, s, slot_of):
 
 def ct_insert_new(ct, keys, want_insert, now,
                   probe_depth: int = PROBE_DEPTH,
-                  evict: bool = False, protected=None, inplace: bool = False):
+                  evict: bool = False, protected=None, inplace: bool = False,
+                  shards: int = 1):
     """Deterministic parallel insert of new flows.
 
     → (new_keys, new_created, zero_mask [cap] bool, slot_of [N] int32,
     fail [N] bool, n_evicted int32 0-d tensor), exactly the reference's
     tuple. ``evict`` arms the tail-eviction round; ``protected`` [cap]
     bool marks slots the batch probe-hit. ``inplace`` writes the new keys
-    and created stamps into ``ct`` itself (see the module docstring)."""
+    and created stamps into ``ct`` itself (see the module docstring).
+    ``shards`` > 1 inserts into a shard-major table (``probe_window``):
+    the windows of two tables never share a slot, so every claim, victim
+    and adoption is the one each table's own insert makes, the lowest
+    index in a table being its lowest row, and ``n_evicted`` is their
+    sum."""
     now = _now(now)
     now_bits = _bits(now)
     dev = keys.device
     cap = ct["expiry"].shape[0]
-    mask = cap - 1
     n = keys.shape[0]
     idx = torch.arange(n, dtype=torch.int64, device=dev)
-    base = hash_words_u64(keys) & mask
+    slot = probe_window(keys, cap, shards)
 
     keys_arr = ct["keys"] if inplace else ct["keys"].clone()
     created_arr = ct["created"] if inplace else ct["created"].clone()
@@ -186,10 +207,10 @@ def ct_insert_new(ct, keys, want_insert, now,
         if r > 0:
             # adoption: my previous round's target may now hold my key,
             # inserted by a lower-indexed duplicate of my flow
-            sprev = (base + (r - 1)) & mask
+            sprev = slot(r - 1)
             slot_of, pending = _adopt(pending, claimed, keys_arr, keys,
                                       sprev, slot_of)
-        s = (base + r) & mask
+        s = slot(r)
         free = (u32(ct["expiry"][s]) <= now) & ~claimed[s]
         attempt = pending & free
         claim = _claim(torch.where(attempt, s, sink), idx, cap, n)
@@ -202,7 +223,7 @@ def ct_insert_new(ct, keys, want_insert, now,
     # final adoption sweep: stragglers whose duplicate won at a slot they
     # already passed
     for r in range(probe_depth):
-        s = (base + r) & mask
+        s = slot(r)
         slot_of, pending = _adopt(pending, claimed, keys_arr, keys, s,
                                   slot_of)
 
@@ -215,7 +236,7 @@ def ct_insert_new(ct, keys, want_insert, now,
         best_s = torch.full((n,), -1, dtype=torch.int64, device=dev)
         best_e = torch.full((n,), _M32, dtype=torch.int64, device=dev)
         for r in range(probe_depth):
-            s = (base + r) & mask
+            s = slot(r)
             e = u32(ct["expiry"][s])
             slot_proto = u32(ct["keys"][s, 9]) >> 8
             cand = (pending & (e > now)
@@ -237,7 +258,7 @@ def ct_insert_new(ct, keys, want_insert, now,
         n_evicted = winner.sum().to(torch.int32)
         # adoption: duplicates of an evict-winner's key ride its new slot
         for r in range(probe_depth):
-            s = (base + r) & mask
+            s = slot(r)
             slot_of, pending = _adopt(pending, claimed, keys_arr, keys, s,
                                       slot_of)
 

@@ -6,7 +6,8 @@
   trie on the card and caches; a v4-only launch walks the v4 trie's own
   planes.
 - ``ct_probe_pair_fused`` (K2, ``csrc/ct_probe_pair.cu``): the forward and
-  reverse CT probes in one launch.
+  reverse CT probes in one launch (``ct_probe_pair_sharded``: one launch
+  per table of a co-located mesh's shard-major CT).
 - ``policy_verdict_fused`` (K3, ``csrc/policy_verdict.cu``): policy ladder,
   L7 token match and verdict composition in one launch.
 
@@ -210,6 +211,32 @@ def ct_probe_pair_fused(ct, fwd_keys, rev_keys, now, probe_depth: int):
             _now(now), int(probe_depth), fwd_slot.data_ptr(),
             rev_slot.data_ptr())
     return fwd_slot, rev_slot
+
+
+def ct_probe_pair_sharded(ct, fwd_keys, rev_keys, now, probe_depth: int,
+                          shards: int, fused: bool = True):
+    """The probe pair over a shard-major table of ``shards`` equal tables
+    (rows shard-major, ``conntrack.probe_window``) → global slots. With
+    ``fused``, K2 runs once per table, on its slot range and its rows,
+    and each hit is offset by the range's first slot; otherwise the plain
+    version runs once over every row."""
+    if not fused:
+        return (ct_probe_core(ct["keys"], ct["expiry"], fwd_keys, now,
+                              probe_depth, shards),
+                ct_probe_core(ct["keys"], ct["expiry"], rev_keys, now,
+                              probe_depth, shards))
+    local = ct["expiry"].shape[0] // shards
+    per = fwd_keys.shape[0] // shards
+    fwd, rev = [], []
+    for f in range(shards):
+        rows = slice(f * per, (f + 1) * per)
+        lo = f * local
+        part = {k: v[lo:lo + local] for k, v in ct.items()}
+        fs, rs = ct_probe_pair_fused(part, fwd_keys[rows], rev_keys[rows],
+                                     now, probe_depth)
+        fwd.append(torch.where(fs >= 0, fs + lo, fs))
+        rev.append(torch.where(rs >= 0, rs + lo, rs))
+    return torch.cat(fwd), torch.cat(rev)
 
 
 # --------------------------------------------------------------------------- #

@@ -3,8 +3,11 @@
 
 - **The mesh** is a ``[n_flow, n_rule]`` grid of ``torch.device``s in ONE
   process (``make_mesh``), as the reference's is one controller driving a
-  ``shard_map`` over a device grid. Each flow shard runs its own step
-  from a host loop; collectives are explicit tensor moves and sums. The
+  ``shard_map`` over a device grid. Where every flow shard shares one
+  device and there is no rule axis (``TorchMesh.colocated``), the
+  host-steered step is one step over all shards; elsewhere each flow
+  shard runs its own step from a host loop. Collectives are explicit
+  tensor moves and sums. The
   grid may hold one device more than once (``cpu`` in the tests, one
   card shared by several shards): the port's counterpart of XLA's
   virtual host devices. On a node with several cards shard i lands on
@@ -325,6 +328,14 @@ class TorchMesh:
         return self.devices[flow][rule]
 
     @property
+    def colocated(self) -> bool:
+        """Every flow shard on one device and no rule axis: the geometry
+        whose steered step runs as one step over all shards (the CPU
+        mesh, one card)."""
+        return self.shape["rules"] == 1 and all(
+            row[0] == self.devices[0][0] for row in self.devices)
+
+    @property
     def distinct_devices(self) -> List[Any]:
         """Each device of the grid once, in grid order."""
         seen: List[Any] = []
@@ -428,15 +439,32 @@ def shard_views(placed: Dict[Any, Dict], mesh: TorchMesh):
     return views, axes
 
 
+class CTShards(list):
+    """The CT of a co-located mesh: one table per flow shard, each a view
+    of its slot range of ``table``, the shard-major table the step
+    reads and writes whole."""
+
+    def __init__(self, table: Dict[str, Any], n: int):
+        local = table["expiry"].shape[0] // n
+        super().__init__({k: v[f * local:(f + 1) * local]
+                          for k, v in table.items()} for f in range(n))
+        self.table = table
+
+
 def split_ct(ct: Dict[str, np.ndarray], mesh: TorchMesh
              ) -> List[Dict[str, Any]]:
     """A global CT table (uint32 numpy, shard-major slot ranges) → one
-    int32 table per flow shard, on the shard's device. The capacity must
-    split into power-of-two shards."""
+    int32 table per flow shard, on the shard's device (on a co-located
+    mesh, views of one table: :class:`CTShards`). The capacity must split
+    into power-of-two shards."""
     import torch
     from cilium_tpu_torch.convert import port_dtype
     n = mesh.shape["flows"]
     local = local_ct_capacity(ct["expiry"].shape[0], n)
+    if mesh.colocated:
+        return CTShards({k: torch.tensor(port_dtype(v),
+                                         device=mesh.device_of(0))
+                         for k, v in ct.items()}, n)
     return [{k: torch.tensor(port_dtype(v[f * local:(f + 1) * local]),
                              device=mesh.device_of(f))
              for k, v in ct.items()} for f in range(n)]
@@ -484,6 +512,24 @@ def split_batch(batch, mesh: TorchMesh) -> List[Dict[str, Any]]:
     return out
 
 
+def whole_batch(batch, mesh: TorchMesh) -> Dict[str, Any]:
+    """A column dict (numpy), a packed wire or a ``(wire, dict...)``
+    tuple → one unpacked batch dict of all its rows on a co-located
+    mesh's device. The rows must divide the flow axis."""
+    from cilium_tpu_torch.kernels.records import (batch_to_torch,
+                                                  unpack_wire,
+                                                  wire_to_torch)
+    n = mesh.shape["flows"]
+    dev = mesh.device_of(0)
+    if isinstance(batch, dict):
+        _per_shard(batch["valid"].shape[0], n)
+        return batch_to_torch(batch, dev)
+    parts = tuple(batch) if isinstance(batch, (tuple, list)) else (batch,)
+    _per_shard(parts[0].shape[0], n)
+    wire = tuple(wire_to_torch(p, dev) for p in parts)
+    return unpack_wire(wire if len(wire) > 1 else wire[0])
+
+
 def _per_shard(rows: int, n: int) -> int:
     if rows % n:
         raise ValueError(f"batch rows ({rows}) must divide into {n} flow "
@@ -505,16 +551,26 @@ def sum_counters(counters: List[Dict[str, Any]], device) -> Dict[str, Any]:
 def make_sharded_classify_fn(mesh: TorchMesh, probe_depth: int = PROBE_DEPTH,
                              v4_only: bool = False, donate_ct: bool = True,
                              fused: bool = True):
-    """The host-steered classify step over ``mesh``: each flow shard runs
-    ``kernels/classify.classify_step`` on its own segment of the rows and
-    its own CT shard (with ``fused``, K1, K2 and, on a flow-only mesh, K3
-    launch once per shard). Call with ``(placed, cts, batch, now,
-    world_index)``: ``placed`` from ``place_mesh_tensors``, ``cts`` from
-    ``split_ct`` (updated in place with ``donate_ct``), ``batch`` steered
-    (``steer_batch``) in any form ``split_batch`` takes. → (out on the
-    mesh's first device with the rows in batch order, cts, counters summed
-    over the flow axis)."""
+    """The host-steered classify step over ``mesh``. Call with ``(placed,
+    cts, batch, now, world_index)``: ``placed`` from
+    ``place_mesh_tensors``, ``cts`` from ``split_ct`` (updated in place
+    with ``donate_ct``), ``batch`` steered (``steer_batch``) in any form
+    ``split_batch`` takes. → (out on the mesh's first device with the rows
+    in batch order, cts, counters summed over the flow axis).
+
+    On a co-located mesh (``TorchMesh.colocated``) it is ONE
+    ``kernels/classify.classify_step`` over all rows with ``shards`` = the
+    flow axis: the stateless stages run once (with ``fused``, K1 and K3
+    launch once a dispatch), the probe pair once per shard (K2, or the
+    plain probe once over the shard-major table), the CT update once over
+    the shard-major table. Elsewhere each flow shard runs its own step on
+    its own segment of the rows and its own CT shard (with ``fused``, K1,
+    K2 and, on a flow-only mesh, K3 launch once per shard). Both are the
+    reference's steered step bit for bit."""
     from cilium_tpu_torch.kernels.classify import classify_step
+    if mesh.colocated:
+        return _make_colocated_classify(mesh, probe_depth, v4_only,
+                                        donate_ct, fused)
 
     def step(views, axes, cts, batches, now, world_index):
         res = [classify_step(views[f], cts[f], batches[f], now, world_index,
@@ -548,6 +604,24 @@ def make_unsteered_classify_fn(mesh: TorchMesh,
             inplace=donate_ct)
 
     return _make_meshed_classify(mesh, step)
+
+
+def _make_colocated_classify(mesh: TorchMesh, probe_depth: int,
+                             v4_only: bool, donate_ct: bool, fused: bool):
+    """The steered step of a co-located mesh (see
+    :func:`make_sharded_classify_fn`); ``cts`` is a :class:`CTShards`."""
+    from cilium_tpu_torch.kernels.classify import classify_step
+    dev = mesh.device_of(0)
+    n = mesh.shape["flows"]
+
+    def call(placed, cts, batch, now, world_index):
+        out, table, counters = classify_step(
+            placed[dev], cts.table, whole_batch(batch, mesh), now,
+            world_index, probe_depth=probe_depth, v4_only=v4_only,
+            fused=fused, inplace=donate_ct, shards=n)
+        return out, (cts if donate_ct else CTShards(table, n)), counters
+
+    return call
 
 
 def _make_meshed_classify(mesh: TorchMesh, step):

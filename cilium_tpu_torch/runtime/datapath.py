@@ -35,6 +35,7 @@ from cilium_tpu_torch.compile.ct_layout import (CT_FIELDS, KEY_WORDS,
 from cilium_tpu_torch.compile.snapshot import PolicySnapshot
 from cilium_tpu_torch.observe.trace import (CT_GC_SPAN, PATCH_APPLY_SPAN,
                                             active as active_trace)
+from cilium_tpu_torch.parallel.mesh import CTShards
 from cilium_tpu_torch.runtime.config import DaemonConfig
 from cilium_tpu_torch.runtime.faults import FAULTS
 from cilium_tpu_torch.utils import constants as C
@@ -411,12 +412,18 @@ class TorchDatapath(DatapathBackend):
             "remesh_ct_dropped": 0,      # rehash probe-window casualties
             "remesh_gather_failures": 0,  # device.collective / gather died
         }
-        # the CT: one table per flow shard (one on a single device)
+        # the CT: one table per flow shard (one on a single device; on a
+        # co-located mesh, views of one shard-major table)
         with self._on_stream():
-            self._cts = [make_ct_arrays(
-                CTConfig(self._ct_capacity // self.n_flow_shards,
-                         cfg.probe_depth),
-                device=self._home(f)) for f in range(self.n_flow_shards)]
+            if self._colocated:
+                self._cts = CTShards(make_ct_arrays(
+                    CTConfig(self._ct_capacity, cfg.probe_depth),
+                    device=self._home()), self.n_flow_shards)
+            else:
+                self._cts = [make_ct_arrays(
+                    CTConfig(self._ct_capacity // self.n_flow_shards,
+                             cfg.probe_depth),
+                    device=self._home(f)) for f in range(self.n_flow_shards)]
         # the in-place CT step and the in-place verdict patch: the enqueue
         # of each is serialized (host-side controllers may call in)
         self._ct_lock = threading.Lock()
@@ -495,6 +502,11 @@ class TorchDatapath(DatapathBackend):
         return make_fn(mesh, probe_depth=self.config.probe_depth,
                        v4_only=self.config.v4_only,
                        donate_ct=self.config.donate_ct, fused=self._fused)
+
+    @property
+    def _colocated(self) -> bool:
+        """A mesh whose flow shards share one device, rule axis 1."""
+        return self._mesh is not None and self._mesh.colocated
 
     def _home(self, flow: int = 0):
         """The device of flow shard ``flow``'s step and CT."""
@@ -1085,8 +1097,9 @@ class TorchDatapath(DatapathBackend):
     def _dispatch_mesh(self, placed, snap, b, now, pooled: bool,
                        fallback_reason: str, tracer, trace_id, span_kw):
         """Pack ``b`` (rows a multiple of the flow axis), upload each flow
-        shard's rows to its device, enqueue the meshed step and the fetch.
-        → (fetched, wire_key, wire_buf)."""
+        shard's rows to its device (the whole wire at once where the
+        steered step is one step over co-located shards), enqueue the
+        meshed step and the fetch. → (fetched, wire_key, wire_buf)."""
         from cilium_tpu_torch.parallel.mesh import ShardedBatch
         n = self.n_flow_shards
         with tracer.span(trace_id, "datapath.pack", **span_kw):
@@ -1112,6 +1125,12 @@ class TorchDatapath(DatapathBackend):
                 with self._on_stream():
                     if dict_batch is not None:
                         dev_batch = dict_batch
+                    elif self._colocated and not self._rss_device:
+                        home = self._home()
+                        dev_batch = self._upload_wire(wire, wire_buf)
+                        if path_dict is not None:
+                            dev_batch = (dev_batch, self._upload_path_dict(
+                                path_dict, [home])[home])
                     else:
                         per = wire.shape[0] // n
                         devs = [self._home(f) for f in range(n)]
@@ -1398,6 +1417,9 @@ class TorchDatapath(DatapathBackend):
         shard of the active geometry, on the shards' devices (call on the
         streams)."""
         n = self.n_flow_shards
+        if self._colocated:
+            return CTShards({k: self._put_tensor(_u32_bits(arrays[k]))
+                             for k in CT_FIELDS}, n)
         local = arrays["expiry"].shape[0] // n
         return [{k: self._put_tensor(
             _u32_bits(arrays[k][f * local:(f + 1) * local]), self._home(f))

@@ -242,8 +242,10 @@ def test_mesh_on_the_card_equals_the_plain_mesh(device, mesh):
     """A 4-shard datapath (host-steered, then device RSS) with its shards
     sharing the card, against the same geometry with
     ``fused_kernels="off"``: every ticket's out columns and the CT arrays
-    equal; K1 and K2 launch once per flow shard a dispatch, K3 (host RSS
-    only; device RSS runs the split policy core) once per shard."""
+    equal; K2 launches once per flow shard a dispatch; the host-steered
+    step (one step over the co-located shards) launches K1 and K3 once a
+    dispatch, device RSS K1 once per shard and K3 never (it runs the
+    split policy core)."""
     import numpy as np
     engines = [_serve_engine(f, device, **mesh) for f in ("auto", "off")]
     batches = _peer_batches()
@@ -256,9 +258,11 @@ def test_mesh_on_the_card_equals_the_plain_mesh(device, mesh):
         if eng is engines[0]:
             launches = dict(fk.LAUNCHES)
             dispatched = eng.pipeline_stats()["dispatched_batches"]
-    assert launches["lpm_lookup_fused"] == 4 * dispatched > 0, launches
+    device_rss = mesh.get("rss_mode") == "device"
+    k1 = 4 * dispatched if device_rss else dispatched
+    assert launches["lpm_lookup_fused"] == k1 > 0, launches
     assert launches["ct_probe_pair_fused"] == 4 * dispatched, launches
-    k3 = 0 if mesh.get("rss_mode") == "device" else 4 * dispatched
+    k3 = 0 if device_rss else dispatched
     assert launches["policy_verdict_fused"] == k3, launches
     for want, got in zip(results[1], results[0]):
         for k in want:

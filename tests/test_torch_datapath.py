@@ -244,7 +244,7 @@ def assert_engines_equal(ej, et, msg=""):
     assert cj == mt.counters, msg
 
 
-def both(fn, *args, **kw):
+def per_side(fn, *args, **kw):
     return [fn(side, *args, **kw) for side in SIDES]
 
 
@@ -312,7 +312,7 @@ def test_delta_patched_image_equals_full_place():
 
 
 def test_patch_stats_equal_jax_over_warm_churn():
-    ej, et = both(storm_engine)
+    ej, et = per_side(storm_engine)
     warm_geometry(ej, et)
     now = 1000
     for step in range(10):
@@ -366,7 +366,7 @@ def test_stale_placement_fence_and_engine_retry(monkeypatch):
 
 
 def test_scatter_failure_self_heals_with_full_upload():
-    ej, et = both(storm_engine)
+    ej, et = per_side(storm_engine)
     warm_geometry(ej, et)
     for e in (ej, et):
         e.replace_policy(["k8s:warm=w2-443"],
@@ -396,7 +396,7 @@ def test_scatter_failure_self_heals_with_full_upload():
 
 
 def test_legacy_row_patch_without_delta_equals_jax():
-    ej, et = both(storm_engine, delta_patch=False)
+    ej, et = per_side(storm_engine, delta_patch=False)
     warm_geometry(ej, et)
     for step in range(4):
         label = f"k8s:warm=w{step}-8080"
@@ -427,58 +427,14 @@ PLAIN_POLICY = [{
 }]
 
 
-def _l7_batch(eng):
-    recs = [rec("192.168.1.30", "192.168.1.10", 50000 + i, 80)
-            for i in range(4)]
-    b = batch_from_records(recs, eng.active.snapshot.ep_slot_of)
-    b["http_method"][:] = 0
-    b["http_path"][:, :4] = np.frombuffer(b"/api", np.uint8)
-    return b
-
-
-def _v4_batch(eng):
-    recs = [rec("192.168.1.10", "10.1.2.3", 51000 + i, 443,
-                direction=C.DIR_EGRESS) for i in range(4)]
-    return batch_from_records(recs, eng.active.snapshot.ep_slot_of)
-
-
 def test_l7_burst_unsticks_after_l7_free_snapshot():
-    eng = bare_engine("torch", batch_size=32)
-    eng.add_endpoint(["k8s:app=web"], ips=("192.168.1.10",), ep_id=1)
-    eng.add_endpoint(["k8s:role=fe"], ips=("192.168.1.30",), ep_id=3)
-    eng.apply_policy(L7_POLICY)
-    eng.regenerate()
-    assert bool(eng.classify(_l7_batch(eng), now=100)["allow"].all())
-    assert eng.datapath._wire_l7
-    eng.repo.clear()
-    eng.apply_policy(PLAIN_POLICY)
-    eng.regenerate(force=True)
-    assert not eng.datapath._wire_l7
-    assert eng.datapath.pack_stats["wire_flag_resets"] >= 1
-    assert bool(eng.classify(_v4_batch(eng), now=200)["allow"].all())
-    assert not eng.datapath._wire_l7
-    eng.stop()
+    """``TestWireFlagReset``'s case of the same name, on both packages."""
+    both(WireFlagCases.l7_burst_unsticks_after_l7_free_snapshot)
 
 
 def test_v6_burst_unsticks_after_clean_run():
-    clean = mods("torch").datapath.WIRE_RESET_CLEAN_BATCHES
-    eng = bare_engine("torch", batch_size=32)
-    eng.add_endpoint(["k8s:app=web"], ips=("192.168.1.10",), ep_id=1)
-    eng.apply_policy(PLAIN_POLICY)
-    eng.regenerate()
-    b = _v4_batch(eng)
-    b["is_v6"][0] = True
-    eng.classify(b, now=100)
-    assert eng.datapath._wire_wide
-    eng.regenerate(force=True)
-    assert eng.datapath._wire_wide
-    for i in range(clean):
-        eng.classify(_v4_batch(eng), now=110 + i)
-    eng.regenerate(force=True)
-    assert not eng.datapath._wire_wide
-    assert eng.datapath.pack_stats["wire_flag_resets"] >= 1
-    assert bool(eng.classify(_v4_batch(eng), now=300)["allow"].all())
-    eng.stop()
+    """``TestWireFlagReset``'s case of the same name, on both packages."""
+    both(WireFlagCases.v6_burst_unsticks_after_clean_run)
 
 
 # --------------------------------------------------------------------------- #
@@ -584,7 +540,7 @@ def test_ct_format_from_the_future_is_refused():
 
 
 def test_v1_checkpoint_without_rev_nat_loads():
-    ej, et = both(storm_engine)
+    ej, et = per_side(storm_engine)
     ej.classify(traffic(ej.active.snapshot.ep_slot_of), now=100)
     arrays = ej.ct_arrays()
     del arrays["rev_nat"]
@@ -643,3 +599,396 @@ def test_mesh_configurations_raise(kw):
 def test_bad_device_is_refused_by_the_config():
     with pytest.raises(ValueError, match="cuda | cpu"):
         mods("torch").config.DaemonConfig(device="tpu")
+
+
+# --------------------------------------------------------------------------- #
+# case for case with test_datapath.py
+# --------------------------------------------------------------------------- #
+# Each reference case runs its own body on each package (``P(side)``: the
+# port's ``DaemonConfig`` on the CPU, its ``TorchDatapath`` where the
+# reference builds a ``JITDatapath``), asserts the reference's expectations
+# on both, and holds a side-neutral observation equal (``both``).
+import functools  # noqa: E402
+import os  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ORACLE = {"jax": "oracle", "torch": "cilium_tpu_torch.oracle"}
+
+
+def P(side):
+    """``side``'s objects by the names ``test_datapath.py`` imports."""
+    pkg = PKG[side]
+    mod = importlib.import_module
+    dp = mod(f"{pkg}.runtime.datapath")
+    cfg = mod(f"{pkg}.runtime.config").DaemonConfig
+    if side == "torch":
+        cfg = functools.partial(cfg, device="cpu")
+    return SimpleNamespace(
+        side=side, pkg=pkg, DaemonConfig=cfg, FakeDatapath=dp.FakeDatapath,
+        JITDatapath=(dp.TorchDatapath if side == "torch"
+                     else dp.JITDatapath),
+        WIRE_RESET_CLEAN_BATCHES=dp.WIRE_RESET_CLEAN_BATCHES,
+        Engine=mod(f"{pkg}.runtime.engine").Engine,
+        batch_from_records=mod(f"{pkg}.kernels.records").batch_from_records,
+        C=mod(f"{pkg}.utils.constants"),
+        parse_addr=mod(f"{pkg}.utils.ip").parse_addr,
+        PacketRecord=mod(ORACLE[side]).PacketRecord)
+
+
+def both(case):
+    obs = {s: case(P(s)) for s in SIDES}
+    assert obs["jax"] == obs["torch"]
+    return obs["torch"]
+
+
+FIXTURE_RULES = [
+    {
+        "endpointSelector": {"matchLabels": {"app": "web"}},
+        "egress": [
+            {"toCIDRSet": [{"cidr": "10.0.0.0/8",
+                            "except": ["10.96.0.0/12"]}],
+             "toPorts": [{"ports": [{"port": "443", "protocol": "TCP"}]}]},
+        ],
+        "egressDeny": [{"toCIDR": ["10.66.0.0/16"]}],
+        "ingress": [{"fromEndpoints": [{"matchLabels": {"role": "fe"}}]}],
+    },
+]
+
+
+def fixture_engine(m, datapath):
+    eng = m.Engine(m.DaemonConfig(ct_capacity=2048, auto_regen=False,
+                                  flowlog_mode="all"), datapath=datapath)
+    eng.add_endpoint(["k8s:app=web"], ips=("192.168.1.10",), ep_id=1)
+    eng.add_endpoint(["k8s:role=fe"], ips=("192.168.1.30",), ep_id=3)
+    eng.apply_policy(FIXTURE_RULES)
+    return eng
+
+
+def pkt(m, src, dst, sp, dp, proto=C.PROTO_TCP, flags=C.TCP_SYN, ep_id=1,
+        direction=C.DIR_EGRESS):
+    s16, sv6 = m.parse_addr(src)
+    d16, dv6 = m.parse_addr(dst)
+    return m.PacketRecord(s16, d16, sp, dp, proto, flags, sv6 or dv6,
+                          ep_id, direction)
+
+
+def fixture_traffic(m):
+    return [
+        pkt(m, "192.168.1.10", "10.1.2.3", 40000, 443),    # allow (CIDRSet)
+        pkt(m, "192.168.1.10", "10.96.0.1", 40001, 443),   # drop (except)
+        pkt(m, "192.168.1.10", "10.66.1.1", 40002, 443),   # drop (deny wins)
+        pkt(m, "192.168.1.10", "10.1.2.3", 40003, 80),     # drop (port)
+        pkt(m, "192.168.1.30", "192.168.1.10", 40004, 22,  # allow (fromEP)
+            ep_id=1, direction=C.DIR_INGRESS),
+    ]
+
+
+def array_bytes(arrays):
+    """A dict of arrays → (name, dtype, shape, bytes), sorted by name."""
+    return sorted((k, np.asarray(v).dtype.str, np.asarray(v).shape,
+                   np.asarray(v).tobytes()) for k, v in arrays.items())
+
+
+def columns(out, keys):
+    return {k: np.asarray(out[k]).tolist() for k in keys}
+
+
+class TestFakeDatapath:
+    def test_control_plane_replay_records_placements(self):
+        """pkg/datapath/fake pattern: replay fixtures, assert what would be
+        programmed (placed snapshot + tensor images), no device involved."""
+        @both
+        def _(m):
+            C = m.C
+            fake = m.FakeDatapath()
+            eng = fixture_engine(m, fake)
+            eng.regenerate()
+            assert len(fake.placed) == 1
+            snap, tensors = fake.placed[0]
+            assert snap.revision == eng.active.revision
+            decisions = tensors["verdict"] & C.VERDICT_DECISION_MASK
+            assert (decisions == C.VERDICT_DENY).any()
+            assert (decisions == C.VERDICT_ALLOW).any()
+            eng.apply_policy([{
+                "endpointSelector": {"matchLabels": {"app": "web"}},
+                "egress": [{"toCIDR": ["11.0.0.0/8"]}]}])
+            eng.regenerate()
+            assert len(fake.placed) == 2
+            assert fake.placed[1][0].revision > snap.revision
+            return [(s.revision, array_bytes(t)) for s, t in fake.placed]
+
+    def test_fake_matches_jit_verdicts(self):
+        """The two backends implement the same semantics contract: identical
+        fixture + traffic → bit-identical verdict columns and CT stats."""
+        @both
+        def _(m):
+            C = m.C
+            eng_fake = fixture_engine(m, m.FakeDatapath(
+                m.DaemonConfig(ct_capacity=2048)))
+            eng_jit = fixture_engine(m, m.JITDatapath(m.DaemonConfig(
+                ct_capacity=2048, auto_regen=False)))
+            slots = eng_fake.active.snapshot.ep_slot_of
+            assert slots == eng_jit.active.snapshot.ep_slot_of
+            batch = m.batch_from_records(fixture_traffic(m), slots)
+            now = 1000
+            out_f = eng_fake.classify(dict(batch), now=now)
+            out_j = eng_jit.classify(dict(batch), now=now)
+            keys = ("allow", "reason", "status", "remote_identity",
+                    "redirect", "svc", "rnat")
+            for k in keys:
+                np.testing.assert_array_equal(
+                    np.asarray(out_f[k]), np.asarray(out_j[k]), k)
+            svc = np.asarray(out_j["svc"])
+            rnat = np.asarray(out_j["rnat"])
+            np.testing.assert_array_equal(
+                np.asarray(out_f["nat_dport"])[svc],
+                np.asarray(out_j["nat_dport"])[svc])
+            np.testing.assert_array_equal(
+                np.asarray(out_f["rnat_sport"])[rnat],
+                np.asarray(out_j["rnat_sport"])[rnat])
+            assert eng_fake.ct_stats(now) == eng_jit.ct_stats(now)
+            out_f2 = eng_fake.classify(dict(batch), now=now + 5)
+            out_j2 = eng_jit.classify(dict(batch), now=now + 5)
+            np.testing.assert_array_equal(out_f2["status"], out_j2["status"])
+            assert (np.asarray(out_f2["status"])[0]
+                    == C.CTStatus.ESTABLISHED)
+            return (columns(out_f, keys), columns(out_j, keys),
+                    eng_jit.ct_stats(now), columns(out_f2, ("status",)),
+                    columns(out_j2, ("status",)))
+
+    def test_ct_arrays_roundtrip(self):
+        """Fake CT export/import preserves entries (checkpoint path)."""
+        @both
+        def _(m):
+            fake = m.FakeDatapath(m.DaemonConfig(ct_capacity=2048))
+            eng = fixture_engine(m, fake)
+            eng.classify(m.batch_from_records(
+                fixture_traffic(m), eng.active.snapshot.ep_slot_of),
+                now=1000)
+            before = fake.ct_stats(1000)
+            assert before["live"] > 0
+            arrays = fake.ct_arrays()
+            fake2 = m.FakeDatapath(m.DaemonConfig(ct_capacity=2048))
+            fake2.load_ct_arrays(arrays)
+            assert fake2.ct_stats(1000) == before
+            assert fake2._ct_table.entries == fake._ct_table.entries
+            return before, array_bytes(arrays), \
+                array_bytes(fake2.ct_arrays())
+
+    def test_sweep_reclaims(self):
+        @both
+        def _(m):
+            fake = m.FakeDatapath()
+            eng = fixture_engine(m, fake)
+            eng.classify(m.batch_from_records(
+                fixture_traffic(m), eng.active.snapshot.ep_slot_of),
+                now=1000)
+            assert fake.ct_stats(1000)["live"] > 0
+            reclaimed = eng.sweep(now=10**9)
+            assert reclaimed > 0
+            assert fake.ct_stats(10**9)["live"] == 0
+            return reclaimed, array_bytes(fake.ct_arrays())
+
+
+#: the reference's boundary session; ``{pkg}``/``{oracle}`` name the
+#: side's package and oracle, ``{poison}`` the modules that must never load
+JAXFREE_SESSION = r"""
+import sys
+for name in {poison}:
+    sys.modules[name] = None       # any import of them now raises
+from {pkg}.runtime.config import DaemonConfig
+from {pkg}.runtime.datapath import FakeDatapath
+from {pkg}.runtime.engine import Engine
+from {pkg}.kernels.records import batch_from_records
+from {pkg}.utils.ip import parse_addr
+from {oracle} import PacketRecord
+
+eng = Engine(DaemonConfig(ct_capacity=1024, auto_regen=False),
+             datapath=FakeDatapath())
+eng.add_endpoint(["k8s:app=web"], ips=("192.168.1.10",), ep_id=1)
+eng.apply_policy([{{"endpointSelector": {{"matchLabels": {{"app": "web"}}}},
+                   "egress": [{{"toCIDR": ["10.0.0.0/8"]}}]}}])
+s16, _ = parse_addr("192.168.1.10")
+d16, _ = parse_addr("10.1.2.3")
+p = PacketRecord(s16, d16, 40000, 443, 6, 0x02, False, 1, 0)
+out = eng.classify(batch_from_records([p], eng.active.snapshot.ep_slot_of),
+                   now=100)
+assert bool(out["allow"][0]), out
+assert eng.ct_stats(100)["live"] == 1
+loaded = sorted(n for n in {poison} if sys.modules.get(n) is not None)
+assert not loaded, loaded
+print("JAXFREE_OK")
+"""
+
+
+class TestJaxFreeBoundary:
+    def test_engine_with_fake_never_imports_jax(self):
+        """The boundary is real only if an Engine(FakeDatapath) session runs
+        with jax imports poisoned (on the port's side ``cilium_tpu`` and
+        ``oracle`` too). Subprocess because conftest pre-imports jax in
+        this process."""
+        @both
+        def _(m):
+            poison = ["jax"] if m.side == "jax" else \
+                ["jax", "jaxlib", "cilium_tpu", "oracle"]
+            code = JAXFREE_SESSION.format(pkg=m.pkg, oracle=ORACLE[m.side],
+                                          poison=poison)
+            proc = subprocess.run([sys.executable, "-c", code],
+                                  capture_output=True, text=True,
+                                  timeout=120, cwd=ROOT)
+            assert proc.returncode == 0, proc.stderr
+            assert "JAXFREE_OK" in proc.stdout
+            return proc.returncode, proc.stdout.split()
+
+
+class WireFlagCases:
+    """``TestWireFlagReset``'s bodies, each on one side's modules ``m``:
+    the sticky ``_wire_l7``/``_wire_wide`` widening flags reset in
+    ``place()`` when the NEW snapshot provably has no L7/v6 surface, while
+    verdicts stay correct throughout. Each returns the wire flags after
+    each burst."""
+
+    L7_POLICY = L7_POLICY
+    PLAIN_POLICY = PLAIN_POLICY
+
+    @staticmethod
+    def flags(eng):
+        dp = eng.datapath
+        return (bool(dp._wire_l7), bool(dp._wire_wide),
+                dp._batches_since_wide,
+                dp.pack_stats["wire_flag_resets"])
+
+    @staticmethod
+    def l7_batch(m, eng):
+        recs = [pkt(m, "192.168.1.30", "192.168.1.10", 50000 + i, 80,
+                    direction=m.C.DIR_INGRESS) for i in range(4)]
+        b = m.batch_from_records(recs, eng.active.snapshot.ep_slot_of)
+        b["http_method"][:] = 0
+        b["http_path"][:, :4] = np.frombuffer(b"/api", np.uint8)
+        return b
+
+    @staticmethod
+    def v4_batch(m, eng):
+        recs = [pkt(m, "192.168.1.10", "10.1.2.3", 51000 + i, 443)
+                for i in range(4)]
+        return m.batch_from_records(recs, eng.active.snapshot.ep_slot_of)
+
+    @classmethod
+    def l7_burst_unsticks_after_l7_free_snapshot(cls, m):
+        cfg = m.DaemonConfig(ct_capacity=2048, auto_regen=False,
+                             device="cpu", batch_size=32)
+        eng = m.Engine(cfg, datapath=m.JITDatapath(cfg))
+        eng.add_endpoint(["k8s:app=web"], ips=("192.168.1.10",), ep_id=1)
+        eng.add_endpoint(["k8s:role=fe"], ips=("192.168.1.30",), ep_id=3)
+        eng.apply_policy(cls.L7_POLICY)
+        eng.regenerate()
+        out = eng.classify(cls.l7_batch(m, eng), now=100)
+        assert bool(out["allow"].all())
+        assert eng.datapath._wire_l7          # the burst widened the wire
+        seen = [cls.flags(eng)]
+        eng.repo.clear()
+        eng.apply_policy(cls.PLAIN_POLICY)
+        eng.regenerate(force=True)
+        assert not eng.datapath._wire_l7      # place() reset the flag
+        assert eng.datapath.pack_stats["wire_flag_resets"] >= 1
+        seen.append(cls.flags(eng))
+        out = eng.classify(cls.v4_batch(m, eng), now=200)
+        assert bool(out["allow"].all())
+        assert not eng.datapath._wire_l7
+        seen.append(cls.flags(eng))
+        eng.stop()
+        return seen
+
+    @classmethod
+    def v6_burst_unsticks_after_clean_run(cls, m):
+        cfg = m.DaemonConfig(ct_capacity=2048, auto_regen=False,
+                             device="cpu", batch_size=32)
+        eng = m.Engine(cfg, datapath=m.JITDatapath(cfg))
+        eng.add_endpoint(["k8s:app=web"], ips=("192.168.1.10",), ep_id=1)
+        eng.apply_policy(cls.PLAIN_POLICY)
+        eng.regenerate()
+        b = cls.v4_batch(m, eng)
+        b["is_v6"][0] = True                  # one stray v6 record
+        eng.classify(b, now=100)
+        assert eng.datapath._wire_wide
+        seen = [cls.flags(eng)]
+        eng.regenerate(force=True)
+        assert eng.datapath._wire_wide
+        for i in range(m.WIRE_RESET_CLEAN_BATCHES):
+            eng.classify(cls.v4_batch(m, eng), now=110 + i)
+        seen.append(cls.flags(eng))
+        eng.regenerate(force=True)
+        assert not eng.datapath._wire_wide
+        assert eng.datapath.pack_stats["wire_flag_resets"] >= 1
+        out = eng.classify(cls.v4_batch(m, eng), now=300)
+        assert bool(out["allow"].all())
+        seen.append(cls.flags(eng))
+        eng.stop()
+        return seen
+
+    @classmethod
+    def stale_staging_tail_does_not_pin_wide(cls, m):
+        cfg = m.DaemonConfig(ct_capacity=2048, auto_regen=False,
+                             device="cpu", batch_size=64,
+                             pipeline_flush_ms=1.0)
+        eng = m.Engine(cfg, datapath=m.JITDatapath(cfg))
+        eng.add_endpoint(["k8s:app=web"], ips=("192.168.1.10",), ep_id=1)
+        eng.apply_policy(cls.PLAIN_POLICY)
+        eng.regenerate()
+        recs = [pkt(m, "192.168.1.10", "10.1.2.3", 52000 + i, 443)
+                for i in range(40)]
+        big = m.batch_from_records(recs, eng.active.snapshot.ep_slot_of)
+        big["is_v6"][:] = False
+        big["is_v6"][5] = True                # one v6 row mid-batch
+        eng.submit(big, now=100)              # 40 rows: coalesced path
+        assert eng.drain(timeout=30)
+        assert eng.datapath._wire_wide
+        seen = [cls.flags(eng)[:2]]
+        small = m.batch_from_records(recs[:8],
+                                     eng.active.snapshot.ep_slot_of)
+        for i in range(5):                    # 8 rows: same slots reused
+            eng.submit(dict(small), now=200 + i)
+            assert eng.drain(timeout=30)
+        assert eng.datapath._batches_since_wide >= 5, \
+            "stale staging tail re-tripped the wide probe"
+        seen.append(cls.flags(eng)[:2])
+        eng.stop()
+        return seen
+
+    @classmethod
+    def tokens_without_l7_policy_never_widen(cls, m):
+        cfg = m.DaemonConfig(ct_capacity=2048, auto_regen=False,
+                             device="cpu", batch_size=32)
+        jit = m.Engine(cfg, datapath=m.JITDatapath(cfg))
+        fake = m.Engine(cfg, datapath=m.FakeDatapath(cfg))
+        for eng in (jit, fake):
+            eng.add_endpoint(["k8s:app=web"], ips=("192.168.1.10",),
+                             ep_id=1)
+            eng.apply_policy(cls.PLAIN_POLICY)
+            eng.regenerate()
+        b = cls.v4_batch(m, jit)
+        b["http_method"][:] = 0               # shim tokenizes plain HTTP
+        b["http_path"][:, :4] = np.frombuffer(b"/idx", np.uint8)
+        out_j = jit.classify(dict(b), now=100)
+        out_f = fake.classify(dict(b), now=100)
+        keys = ("allow", "reason", "status", "remote_identity")
+        for k in keys:
+            np.testing.assert_array_equal(out_j[k], out_f[k])
+        assert not jit.datapath._wire_l7      # tokens never widened it
+        seen = (cls.flags(jit), columns(out_j, keys))
+        jit.stop()
+        fake.stop()
+        return seen
+
+
+class TestWireFlagReset:
+    """``test_datapath.py``'s class of that name; its first two cases are
+    this file's module-level twins, turned in place."""
+
+    def test_stale_staging_tail_does_not_pin_wide(self):
+        both(WireFlagCases.stale_staging_tail_does_not_pin_wide)
+
+    def test_tokens_without_l7_policy_never_widen(self):
+        both(WireFlagCases.tokens_without_l7_policy_never_widen)
