@@ -135,9 +135,22 @@ profiled measurement waits for the last phase, profile:
    p50/p99, the host ms inside ``classify_async``, inside ``finalize`` and
    in the engine's finalize folds, ``rule_add_ms``/``rule_remove_ms`` and
    each patch's ``place_patch`` ms, the patch counters, the GC counts and
-   the audit.
+   the audit, and the Python-level torch calls of 4 more dispatches
+   (``classify_async`` and its finalize).
+12. soak   — ``tests/test_torch_qos.py``'s 8-shard QoS soak through
+   ``mesh_dispatch.run_soak`` on ``TorchDatapath(device="cuda")``: 8 flow
+   shards sharing the card (the co-located steered step), batch 512, CT
+   2^12, the auditor at sampling 1.0, QoS ``gold=4:lane,silver=2,bulk=1``;
+   two ``render_metrics`` scrape threads from the start; 20 warm
+   submissions of 64 SYNs; stall timeout 1.0 s, then one 4 s
+   ``datapath.transfer`` hang; 10 submissions after the restart. Fails on
+   a rejected ticket after the restart, an audit mismatch, no restart or
+   more than ``pipeline_max_restarts``, or a kernel never launched.
+   Prints restarts and rejected tickets, the dispatch p50 and max beside
+   the loops (and the scripted step's), the audit, and the Python-level
+   torch calls a dispatch after the restart;
 
-12. agent  — cfg5 built as phase serve builds it, plus one ClusterIP
+13. agent  — cfg5 built as phase serve builds it, plus one ClusterIP
    service (web → 10.96.0.10:443, three backends), its CT warmed at the
    wall clock and saved with ``checkpoint.save`` (seconds, ct.npz bytes);
    ``python3 -m cilium_tpu_torch.cli.main agent run`` restores it in a
@@ -155,7 +168,7 @@ profiled measurement waits for the last phase, profile:
    the service flows keyed on a backend (the LB stage ran); each kernel
    launched in the agent (its ``fused_kernels.launches``, read before
    and after the requests);
-13. feeder — one full cfg5 batch of 65,536 frames (``build_frame``; every
+14. feeder — one full cfg5 batch of 65,536 frames (``build_frame``; every
    8th a new flow to a port no rule opens) through a ``FlowShim`` of the
    port's own build on mocked rings into ``Engine.start_feeder`` on the
    seed engine: the dispatched records equal the frames' rows in order,
@@ -163,11 +176,11 @@ profiled measurement waits for the last phase, profile:
    plain ``TorchDatapath`` replaying them, the shim forwards exactly the
    rows the dispatches allowed; frames/s,
    the feeder's e2e p50/p99 and stats; each kernel launched;
-14. verify — ``verify_configs(quick=True)`` on the card: every combination
+15. verify — ``verify_configs(quick=True)`` on the card: every combination
    accepted; each one's argument, temp and output bytes, ``budget_doc``;
    each kernel launched once per combination at least.
 
-15. mesh  — cfg5 through the port's engine and pipeline on meshes whose
+16. mesh  — cfg5 through the port's engine and pipeline on meshes whose
    shards share the card: (a) 4 flow shards with host RSS, (b) 4 with
    device RSS (the ring CT exchange), (c) 2 flow × 2 rule shards; each
    serves 6 churn batches one at a time (the same batches and clocks
@@ -181,10 +194,11 @@ profiled measurement waits for the last phase, profile:
    of (a), (b), (c) = a one-shard ``TorchDatapath`` on every row where
    neither reports CT_FULL; K1 and K2 launch once per flow shard a
    dispatch, K3 too on (a) and nowhere else. Prints flows/s and batch
-   p50/p99, host ms in ``classify_async``, launches by kernel name,
+   p50/p99, host ms in ``classify_async`` (and (a)'s Python-level torch
+   calls a dispatch over 4 more batches), launches by kernel name,
    ``exchange_bytes`` and the re-mesh ``took_s``.
 
-16. tenants — cfg5 built through the engine with cfg8's QoS (``gold=4:lane,
+17. tenants — cfg5 built through the engine with cfg8's QoS (``gold=4:lane,
    silver=2,bulk=1:cap=10``, lane bucket 64, one batch in flight), each
    submission stamped ``_tenant``: 16 gold lane probes of 32 rows alone,
    12 rounds of two bulk floods of 65,536 rows, a silver batch and a lane
@@ -195,7 +209,7 @@ profiled measurement waits for the last phase, profile:
    no uploaded wire wider than the widest wire format (``_tenant`` never
    reaches the card). Prints flows/s, lane p50/p99 alone and under the
    flood, the admitted shares and ``qos_status()``;
-17. fqdn — cfg5 plus cfg9's egress rules on web (the UDP/53 redirect to
+18. fqdn — cfg5 plus cfg9's egress rules on web (the UDP/53 redirect to
    8.8.8.8 with an allow-all L7 set, ``toFQDNs *.svc.example.com`` → TCP
    443), the DNS plane on: 16 ticks of a DNS batch (6 stable names, 8
    new churn names of TTL 15 s) through the pipeline, the proxy learning
@@ -207,7 +221,7 @@ profiled measurement waits for the last phase, profile:
    the CT replayed on a plain datapath (each patched snapshot placed
    whole). Prints each trie patch's ``place_patch`` ms, refresh p50/p99,
    identities created and retired, and ``fqdn_status()``;
-18. cluster — cfg7's shape: ``ClusterSupervisor`` with two node processes
+19. cluster — cfg7's shape: ``ClusterSupervisor`` with two node processes
    on the card (each an engine on ``TorchDatapath`` at cfg5's CT
    geometry, a ``cluster=mesh`` pod, ingress from the mesh on 8080):
    converge (the post-seed ingest a delta patch), serve 6 batches of
@@ -217,16 +231,16 @@ profiled measurement waits for the last phase, profile:
    ``FlowRelay`` over both nodes' flowlog JSONL sees both; the node
    auditors find 0 mismatches; each node's kernel launches rise. Prints
    per-node flows/s, replication-lag p99 and convergence rounds;
-19. chaos — ``python3 -m cilium_tpu_torch.cli.main faults chaos
+20. chaos — ``python3 -m cilium_tpu_torch.cli.main faults chaos
    --datapath torch`` in a process of its own on the card: exit 0, every
    phase PASS, each kernel launched;
-20. goldengen — cfg5's web endpoint (its MapState and the ipcache) as a
+21. goldengen — cfg5's web endpoint (its MapState and the ipcache) as a
    scenario for the port's C++ golden-vector generator: 256 of cfg5's
    packets (new flows, a port no rule opens, sources outside the
    ipcache, repeats and replies) through the generator, the port's oracle
    and the classify step on the card one packet a step; all three agree
    on allow, reason, CT status and remote identity.
-21. profile — every profiled measurement, after every host-bound phase:
+22. profile — every profiled measurement, after every host-bound phase:
    each kernel's ``ms`` and ``hot_ms`` on phase kernels' inputs and K2's
    at phase ddos's saturated table; cfg5 built through the engine again,
    2 warm batches and 4 pipelined under ``torch.profiler`` (each kernel
@@ -253,6 +267,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), for the bytes bound
 HBM_BYTES_PER_S = 3.35e12
@@ -291,8 +306,8 @@ def check(cond, msg):
 #: the phases whose readings are host-bound (flows/s, latencies, restore
 #: and re-mesh seconds, host ms a call): each calls ``host_bound`` first
 HOST_BOUND = ("ddos", "kernels", "cfg5", "update", "mixed", "cfg3", "serve",
-              "agent", "feeder", "observe", "verify", "mesh", "tenants",
-              "fqdn", "cluster")
+              "soak", "agent", "feeder", "observe", "verify", "mesh",
+              "tenants", "fqdn", "cluster")
 #: the ``torch.profiler`` sessions this process has started, in order
 #: (``profiler_session``). One with CUDA activity leaves the later
 #: launches of the process slower on the host (``profiler_drift.py``).
@@ -2285,6 +2300,9 @@ class DispatchLog:
         self.owned = {}
         self.n_steps = 0
         self.async_ms, self.finalize_ms, self.place_ms = [], [], []
+        # with ``counting``, each dispatch's Python-level torch calls
+        # (``classify_async`` and its finalize; ``dispatch_calls``)
+        self.counting, self.torch_calls = False, []
         # every timer's host ms, call by call, and the windows' marks
         self.ms = {"classify_async": self.async_ms,
                    "finalize": self.finalize_ms}
@@ -2390,11 +2408,21 @@ class DispatchLog:
             self.owned[id(batch["valid"])] = batch
         return batch
 
+    def _counted(self, fn, *args):
+        """``fn(*args)`` and the torch calls it made from Python on this
+        thread (None unless ``counting``)."""
+        if not self.counting:
+            return fn(*args), None
+        from mesh_dispatch import TorchCalls
+        with TorchCalls() as mode:
+            return fn(*args), mode.calls
+
     def classify_async(self, placed, snap, batch, now, pre_steered=False):
         import numpy as np
         with self.lock:
             t0 = time.perf_counter()
-            fin = self._async(placed, snap, batch, now, pre_steered)
+            fin, calls = self._counted(self._async, placed, snap, batch, now,
+                                       pre_steered)
             self.async_ms.append((time.perf_counter() - t0) * 1e3)
             self.host_cols += any(k.startswith("_") for k in batch)
             mine = self.owned.pop(id(batch["valid"]), None)
@@ -2408,8 +2436,10 @@ class DispatchLog:
 
         def finalize():
             t0 = time.perf_counter()
-            out, counters = fin()
+            (out, counters), more = self._counted(fin)
             self.finalize_ms.append((time.perf_counter() - t0) * 1e3)
+            if calls is not None:
+                self.torch_calls.append(calls + (more or Counter()))
             entry["result"] = ({k: np.array(v) for k, v in out.items()},
                                {k: np.array(v) for k, v in counters.items()})
             return out, counters
@@ -2742,6 +2772,36 @@ class PlainReplay:
         return self
 
 
+def dispatch_calls(eng, log, batches, nows):
+    """Each of ``batches`` submitted at its ``nows`` and awaited, with the
+    Python-level torch calls of every dispatch counted (``DispatchLog``'s
+    ``counting``: a ``mesh_dispatch.TorchCalls`` mode around
+    ``classify_async`` and around its finalize) → the calls of each
+    dispatch by name (a ``Counter``). The mode slows the calls it
+    counts: nothing is timed here."""
+    n0 = len(log.torch_calls)
+    log.counting = True
+    try:
+        for b, now in zip(batches, nows):
+            eng.submit(log.own(b), now=now).result(timeout=300)
+        check(eng.drain(timeout=300), "the pipeline did not drain")
+    finally:
+        log.counting = False
+    return log.torch_calls[n0:]
+
+
+def calls_text(calls):
+    """min / p50 / max of the torch calls of ``dispatch_calls``'s
+    dispatches, and the most frequent names (mean a dispatch)."""
+    import numpy as np
+    check(calls, "no dispatch was counted")
+    totals = [sum(c.values()) for c in calls]
+    top = sum(calls, Counter()).most_common(8)
+    return (f"min {min(totals)} p50 {int(np.percentile(totals, 50))} max "
+            f"{max(totals)} over {len(calls)} dispatches; by name " +
+            ", ".join(f"{name} {n / len(calls):g}" for name, n in top))
+
+
 def replay_plain(log, cfg):
     """``PlainReplay`` of all of ``log``. → (plain datapath, dispatches
     compared, ticks)."""
@@ -2898,6 +2958,8 @@ def phase_serve(seed, card, profile=False):
     audit = eng.auditor.stats()
     check(audit["checked_rows"] > 0 and audit["mismatched_rows"] == 0,
           f"serve: audit {audit}")
+    calls = dispatch_calls(eng, log, [next_batch() for _ in range(4)],
+                           [tick() for _ in range(4)])
 
     # every dispatch against the plain path, then the CT
     t0 = time.perf_counter()
@@ -2928,11 +2990,61 @@ def phase_serve(seed, card, profile=False):
         f"serve: audit at sampling 1.0 over 2 batches: checked "
         f"{audit['checked_rows']} rows, mismatched "
         f"{audit['mismatched_rows']}, {audit_s:.3f} s of replay",
+        f"serve: python-level torch calls a dispatch (classify_async and "
+        f"its finalize, 4 more batches): {calls_text(calls)}",
         f"serve: {n_steps} dispatches and {n_gc} GC ticks replayed on a "
         f"plain TorchDatapath (fused_kernels=off) in {replay_s:.3f} s: every "
         f"out column, counter, GC result and the CT arrays equal",
         f"serve launches: {json.dumps(launches)} for {dispatched} "
         f"dispatched batches"]
+
+
+def phase_soak(card):
+    """``tests/test_torch_qos.py``'s 8-shard QoS soak on the card, through
+    ``mesh_dispatch.run_soak``: 8 flow shards sharing the card (the
+    co-located steered step, one scripted call a dispatch: K1 and K3 once,
+    K2 once a shard), batch 512, CT 2^12, the auditor at sampling 1.0,
+    QoS ``gold=4:lane,silver=2,bulk=1``; two ``render_metrics`` scrape
+    threads from the start; 20 warm submissions of 64 SYNs; stall timeout
+    1.0 s, then one ``datapath.transfer=hang:delay_s=4:times=1``; 10
+    submissions after the restart. Fails on a rejected ticket after the
+    restart, an audit mismatch, no restart or more than
+    ``pipeline_max_restarts``, or a kernel that never launched. → phase
+    lines."""
+    host_bound("phase soak")
+    import mesh_dispatch as md
+    from cilium_tpu_torch.kernels import fused as fk
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    r = md.run_soak(device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = dict(fk.LAUNCHES)
+    check(r["rejected"] == 0, f"soak: {r['rejected']} of {r['tickets']} "
+                              f"tickets rejected after the restart")
+    check(r["checked_rows"] > 0 and r["mismatched_rows"] == 0,
+          f"soak: audit checked {r['checked_rows']} rows, mismatched "
+          f"{r['mismatched_rows']}")
+    check(1 <= r["restarts"] <= r["max_restarts"],
+          f"soak: {r['restarts']} restarts (at most {r['max_restarts']})")
+    if DEVICE == "cuda":
+        check(all(n > 0 for n in launches.values()),
+              f"soak: kernel launches {launches}")
+
+    def ms(xs):
+        import numpy as np
+        return (f"p50 {float(np.percentile(xs, 50)) * 1e3:.3f} ms max "
+                f"{max(xs) * 1e3:.3f} ms over {len(xs)}")
+    return [
+        f"soak: {wall:.3f} s; restarts {r['restarts']} (at most "
+        f"{r['max_restarts']}), tickets rejected after the restart "
+        f"{r['rejected']} of {r['tickets']}; audit checked "
+        f"{r['checked_rows']} rows, mismatched {r['mismatched_rows']}",
+        f"soak: dispatch (classify_async) beside 2 render_metrics loops: "
+        f"warm {ms(r['warm'])}; after the restart {ms(r['after'])}, the "
+        f"scripted step in it {ms(r['steps'])} [{card}]",
+        f"soak: python-level torch calls a dispatch after the restart "
+        f"(classify_async and its finalize): {calls_text(r['calls'])}; "
+        f"launches {json.dumps(launches)}"]
 
 
 def profile_serve(eng, log, next_batch, tick, card):
@@ -4156,6 +4268,14 @@ def phase_mesh(seed, card, report):
                      f"{float(np.percentile(log.finalize_ms, 50)):.3f}; "
                      f"launches {json.dumps(launches[key])} for "
                      f"{dispatched} dispatches [{card}]")
+        if key == "a":
+            calls = dispatch_calls(
+                eng, log, [{k: v.copy() for k, v in b.items()}
+                           for b in piped[:4]],
+                [now0 + 150 + i for i in range(4)])
+            lines.append(f"mesh {what}: python-level torch calls a "
+                         f"dispatch (classify_async and its finalize, 4 "
+                         f"more batches): {calls_text(calls)}")
         if key == "b":
             ex = dp.rss_exchange_stats()
             lines.append(f"mesh {what}: exchange_bytes {json.dumps(ex)} "
@@ -6016,6 +6136,10 @@ def main(argv=None) -> int:
 
         phase = "serve"
         for line in phase_serve(args.seed, card, args.profile):
+            print(f"phase {line}", flush=True)
+
+        phase = "soak"
+        for line in phase_soak(card):
             print(f"phase {line}", flush=True)
 
         phase = "agent"

@@ -23,6 +23,11 @@ round's view of the table) happen before any write they could see.
 
 from __future__ import annotations
 
+import collections
+import os
+import threading
+from typing import Dict, List, Optional, Tuple
+
 import numpy as np
 import torch
 
@@ -33,41 +38,52 @@ from cilium_tpu_torch.kernels.hashing import i32
 from cilium_tpu_torch.kernels.l7 import l7_match_core
 from cilium_tpu_torch.kernels.lb import lb_step
 from cilium_tpu_torch.kernels.lpm import lpm_walk_prov_core
-from cilium_tpu_torch.kernels.policy import policy_lookup_batch
-from cilium_tpu_torch.kernels.records import (batch_to_torch, unpack_wire,
+from cilium_tpu_torch.kernels.policy import RuleAxis, policy_lookup_batch
+from cilium_tpu_torch.kernels.records import (batch_to_torch,
+                                              unpack_wire_parts, wire_parts,
                                               wire_to_torch)
 from cilium_tpu_torch.utils import constants as C
 
 N_REASON_BINS = C.DROP_REASON_BINS
 
+Tensors = Dict[str, torch.Tensor]
 
-def compose_verdict(decision, enforced, cell_redirect, l7_fail,
-                    est, reply, valid):
+
+def compose_verdict(decision: torch.Tensor, enforced: torch.Tensor,
+                    cell_redirect: torch.Tensor, l7_fail: torch.Tensor,
+                    est: torch.Tensor, reply: torch.Tensor,
+                    valid: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
     """(decision, l7_fail) → allow/reason/status/redirect."""
     hit = est | reply
-    new_allow = torch.where(
-        decision == C.VERDICT_DENY, False,
-        torch.where(decision == C.VERDICT_MISS, ~enforced, ~l7_fail))
+    new_allow = (decision != C.VERDICT_DENY) & torch.where(
+        decision == C.VERDICT_MISS, ~enforced, ~l7_fail)
     allow = torch.where(hit, ~l7_fail, new_allow) & valid
-    l7_reason = torch.where(l7_fail, int(C.DropReason.POLICY_L7),
-                            int(C.DropReason.OK))
+    l7_reason = torch.where(l7_fail, C.DropReason.POLICY_L7.value,
+                            C.DropReason.OK.value)
     reason = torch.where(
         hit, l7_reason,
         torch.where(
-            decision == C.VERDICT_DENY, int(C.DropReason.POLICY_DENY),
+            decision == C.VERDICT_DENY, C.DropReason.POLICY_DENY.value,
             torch.where(decision == C.VERDICT_MISS,
-                        torch.where(enforced, int(C.DropReason.POLICY),
-                                    int(C.DropReason.OK)),
+                        torch.where(enforced, C.DropReason.POLICY.value,
+                                    C.DropReason.OK.value),
                         l7_reason))).to(torch.int32)
-    status = torch.where(est, int(C.CTStatus.ESTABLISHED),
-                         torch.where(reply, int(C.CTStatus.REPLY),
-                                     int(C.CTStatus.NEW))).to(torch.int32)
+    status = torch.where(est, C.CTStatus.ESTABLISHED.value,
+                         torch.where(reply, C.CTStatus.REPLY.value,
+                                     C.CTStatus.NEW.value)).to(torch.int32)
     redirect = valid & cell_redirect
     return allow, reason, status, redirect
 
 
-def interior_pre_core(tensors, ep_slot, direction, id_idx, proto,
-                      dport, http_method, http_path, rule_axis=None):
+def interior_pre_core(tensors: Tensors, ep_slot: torch.Tensor,
+                      direction: torch.Tensor, id_idx: torch.Tensor,
+                      proto: torch.Tensor, dport: torch.Tensor,
+                      http_method: torch.Tensor, http_path: torch.Tensor,
+                      rule_axis: Optional[RuleAxis] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor, torch.Tensor]:
     """Policy ladder + L7 token match → (decision, enforced,
     cell_redirect, l7_fail, mrule); nothing here depends on the CT.
     ``rule_axis`` (``kernels/policy.RuleAxis``) reads a rule-sharded
@@ -84,9 +100,16 @@ def interior_pre_core(tensors, ep_slot, direction, id_idx, proto,
     return decision, enforced, cell_redirect, l7_fail, mrule
 
 
-def classify_interior_core(tensors, ep_slot, direction, id_idx, proto,
-                           dport, http_method, http_path, est, reply, valid,
-                           rule_axis=None):
+def classify_interior_core(tensors: Tensors, ep_slot: torch.Tensor,
+                           direction: torch.Tensor, id_idx: torch.Tensor,
+                           proto: torch.Tensor, dport: torch.Tensor,
+                           http_method: torch.Tensor,
+                           http_path: torch.Tensor, est: torch.Tensor,
+                           reply: torch.Tensor, valid: torch.Tensor,
+                           rule_axis: Optional[RuleAxis] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
     """Policy ladder → L7 match → verdict composition: the plain version of
     kernel K3. → (allow [N] bool, reason [N] int32, status [N] int32,
     redirect [N] bool, matched_rule [N] int32, -1 where no ladder ran)."""
@@ -99,14 +122,17 @@ def classify_interior_core(tensors, ep_slot, direction, id_idx, proto,
     return allow, reason, status, redirect, matched_rule
 
 
-def classify_pre_ct(tensors, batch, world_index, *, v4_only: bool = False,
-                    rule_axis=None, lb_probe_depth: int = 8,
-                    fused: bool = True, split_interior: bool = False):
-    """Service LB → ipcache LPM, plus the CT key derivation. → dict with
-    ``batch`` (post-DNAT columns), ``valid``, ``svc``, ``rev_nat``,
-    ``no_backend``, ``id_idx``, ``remote_identity``, ``lpm_prefix``,
-    ``fwd_keys``, ``rev_keys``; with ``split_interior`` also ``decision``,
-    ``enforced``, ``cell_redirect``, ``l7_fail``, ``mrule``."""
+def classify_pre_ct(tensors: Tensors, batch: Tensors, world_index: int,
+                    v4_only: bool = False,
+                    rule_axis: Optional[RuleAxis] = None,
+                    lb_probe_depth: int = 8, fused: bool = True,
+                    split_interior: bool = False) -> Tuple[Tensors, Tensors]:
+    """Service LB → ipcache LPM, plus the CT key derivation. → (the batch
+    with its post-DNAT columns, a dict with ``valid``, ``svc``,
+    ``rev_nat``, ``no_backend``, ``id_idx``, ``remote_identity``,
+    ``lpm_prefix``, ``fwd_keys``, ``rev_keys``; with ``split_interior``
+    also ``decision``, ``enforced``, ``cell_redirect``, ``l7_fail``,
+    ``mrule``)."""
     valid0 = batch["valid"]
     direction = batch["direction"]
     dev = valid0.device
@@ -114,7 +140,7 @@ def classify_pre_ct(tensors, batch, world_index, *, v4_only: bool = False,
         new_dst, new_dport, rev_nat, no_backend = lb_step(
             tensors, batch, probe_depth=lb_probe_depth)
         svc = rev_nat > 0
-        batch = dict(batch)
+        batch = batch.copy()
         batch["dst"] = new_dst
         batch["dport"] = new_dport
         valid = valid0 & ~no_backend
@@ -127,17 +153,21 @@ def classify_pre_ct(tensors, batch, world_index, *, v4_only: bool = False,
 
     remote_words = torch.where((direction == C.DIR_EGRESS)[:, None],
                                batch["dst"], batch["src"])
-    lookup = fk.lpm_lookup_fused if fused else lpm_walk_prov_core
-    id_idx, pfx_meta = lookup(tensors["lpm_v4"], tensors["lpm_v6"],
-                              remote_words, batch["is_v6"], world_index,
-                              v4_only=v4_only)
+    if fused:
+        id_idx, pfx_meta = fk.lpm_lookup_fused(
+            tensors["lpm_v4"], tensors["lpm_v6"], remote_words,
+            batch["is_v6"], world_index, v4_only)
+    else:
+        id_idx, pfx_meta = lpm_walk_prov_core(
+            tensors["lpm_v4"], tensors["lpm_v6"], remote_words,
+            batch["is_v6"], world_index, v4_only)
     ids = tensors["identity_ids"]
     remote_identity = ids[id_idx.to(torch.int64).clamp(0, ids.shape[0] - 1)]
     lpm_prefix = torch.where(valid0, pfx_meta, -1).to(torch.int32)
     fwd_keys, rev_keys = ctk.ct_key_words_pair(batch)
 
     pre = {
-        "batch": batch, "valid": valid, "svc": svc, "rev_nat": rev_nat,
+        "valid": valid, "svc": svc, "rev_nat": rev_nat,
         "no_backend": no_backend, "id_idx": id_idx,
         "remote_identity": remote_identity, "lpm_prefix": lpm_prefix,
         "fwd_keys": fwd_keys, "rev_keys": rev_keys,
@@ -148,20 +178,30 @@ def classify_pre_ct(tensors, batch, world_index, *, v4_only: bool = False,
                               batch["proto"], batch["dport"],
                               batch["http_method"], batch["http_path"],
                               rule_axis=rule_axis)
-        pre.update(decision=decision, enforced=enforced,
-                   cell_redirect=cell_redirect, l7_fail=l7_fail, mrule=mrule)
-    return pre
+        pre["decision"] = decision
+        pre["enforced"] = enforced
+        pre["cell_redirect"] = cell_redirect
+        pre["l7_fail"] = l7_fail
+        pre["mrule"] = mrule
+    return batch, pre
 
 
-def ct_update_stage(ct, fwd_keys, proto, tcp_flags, hit, hit_slot, reply,
-                    new, allow, rev_nat_vals, now,
-                    probe_depth: int = PROBE_DEPTH, inplace: bool = False,
-                    shards: int = 1):
+def ct_update_stage(ct: Tensors, fwd_keys: torch.Tensor,
+                    proto: torch.Tensor, tcp_flags: torch.Tensor,
+                    hit: torch.Tensor, hit_slot: torch.Tensor,
+                    reply: torch.Tensor, new: torch.Tensor,
+                    allow: torch.Tensor, rev_nat_vals: torch.Tensor,
+                    now: int, probe_depth: int = PROBE_DEPTH,
+                    inplace: bool = False, shards: int = 1,
+                    fwd_home: Optional[torch.Tensor] = None
+                    ) -> Tuple[Tensors, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
     """CT insert-when-full + aggregate apply + the batch-start rev-NAT
     read. → (new_ct, ct_full [N] bool, entry_rnat [N] int32, n_evicted).
     ``shards`` > 1: ``ct`` is a shard-major table and the rows are
     shard-major (``conntrack.probe_window``); ``hit_slot`` holds global
-    slots."""
+    slots. ``fwd_home``: the forward keys' home slots
+    (``conntrack.ct_home_pair``), hashed by the insert when not given."""
     want_insert = new & allow
     cap = ct["expiry"].shape[0]
     hit_slot = hit_slot.to(torch.int64)
@@ -174,24 +214,28 @@ def ct_update_stage(ct, fwd_keys, proto, tcp_flags, hit, hit_slot, reply,
     new_keys, new_created, zero_mask, slot_new, fail, n_evicted = \
         ctk.ct_insert_new(ct, fwd_keys, want_insert, now, probe_depth,
                           evict=True, protected=protected[:cap],
-                          inplace=inplace, shards=shards)
+                          inplace=inplace, shards=shards, home=fwd_home)
     ct_full = fail
     allow = allow & ~ct_full
     slot = torch.where(hit, hit_slot, slot_new.to(torch.int64))
-    contrib = allow & torch.where(hit, True, slot_new >= 0)
+    contrib = allow & (hit | (slot_new >= 0))
     new_ct = ctk.ct_apply(ct, {"proto": proto, "tcp_flags": tcp_flags},
                           slot, reply, contrib, now,
                           new_keys=new_keys, new_created=new_created,
                           zero_mask=zero_mask, rev_nat_vals=rev_nat_vals)
     if inplace:
-        for k, v in new_ct.items():
-            if v is not ct[k]:
-                ct[k].copy_(v)
+        # the insert wrote the keys and created stamps into ``ct`` itself;
+        # every other column of ``new_ct`` is a new tensor
+        for k in ["expiry", "flags", "pkts_fwd", "pkts_rev", "rev_nat"]:
+            ct[k].copy_(new_ct[k])
         new_ct = ct
     return new_ct, ct_full, entry_rnat, n_evicted
 
 
-def resolve_rev_nat(tensors, entry_rnat, reply, src, sport):
+def resolve_rev_nat(tensors: Tensors, entry_rnat: torch.Tensor,
+                    reply: torch.Tensor, src: torch.Tensor,
+                    sport: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A reply on a service flow carries the CT entry's stable rev-NAT id
     → rewrite src back to the VIP; unknown ids rewrite nothing."""
     if "lb_rnat_valid" not in tensors:
@@ -209,10 +253,11 @@ def resolve_rev_nat(tensors, entry_rnat, reply, src, sport):
     return rnat, rnat_src, rnat_sport
 
 
-def tally_by_reason_dir(reason, direction, counted):
+def tally_by_reason_dir(reason: torch.Tensor, direction: torch.Tensor,
+                        counted: torch.Tensor) -> torch.Tensor:
     """Per-reason × direction counters [2 * N_REASON_BINS] (int32 bit
     patterns of the reference's uint32), one scatter-add."""
-    cells = N_REASON_BINS * 2
+    cells = C.DROP_REASON_BINS * 2
     bin_idx = reason.to(torch.int64) * 2 + direction
     keep = counted & (bin_idx >= 0) & (bin_idx < cells)
     counts = torch.zeros((cells + 1,), dtype=torch.int64,
@@ -222,11 +267,13 @@ def tally_by_reason_dir(reason, direction, counted):
     return i32(counts[:cells])
 
 
-def classify_step(tensors, ct, batch, now, world_index=0, *,
-                  probe_depth: int = PROBE_DEPTH, v4_only: bool = False,
-                  rule_axis=None, lb_probe_depth: int = 8,
-                  fused: bool = True, inplace: bool = False,
-                  shards: int = 1):
+def classify_step(tensors: Tensors, ct: Tensors, batch: Tensors, now: int,
+                  world_index: int = 0, probe_depth: int = PROBE_DEPTH,
+                  v4_only: bool = False,
+                  rule_axis: Optional[RuleAxis] = None,
+                  lb_probe_depth: int = 8, fused: bool = True,
+                  inplace: bool = False, shards: int = 1
+                  ) -> Tuple[Tensors, Tensors, Tensors]:
     """→ (out, new_ct, counters), with the reference's out columns and
     counters (u32 ones as int32 bit patterns: ``remote_identity``,
     ``nat_dst``, ``rnat_src`` and every counter). With ``rule_axis`` (a
@@ -239,25 +286,36 @@ def classify_step(tensors, ct, batch, now, world_index=0, *,
     shard-major table and the rows are their equal shard-major segments.
     Only the probe pair (``fused.ct_probe_pair_sharded``) and the CT
     update see the shards; every other stage runs once over all rows, and
-    the counters are the sums of the shards' own."""
+    the counters are the sums of the shards' own.
+
+    The body compiles under ``torch.jit.script`` (``scripted``), which is
+    how ``make_classify_fn`` and the co-located mesh run it: one call a
+    dispatch. The plain path (``fused=False``) hashes the CT keys once
+    (``conntrack.ct_home_pair``) for both probes and the insert; K2 hashes
+    its keys itself, and the insert then hashes the forward keys."""
     fused_policy = fused and rule_axis is None
-    pre = classify_pre_ct(tensors, batch, world_index, v4_only=v4_only,
-                          rule_axis=rule_axis,
-                          lb_probe_depth=lb_probe_depth, fused=fused,
-                          split_interior=not fused_policy)
-    batch = pre["batch"]
+    batch, pre = classify_pre_ct(tensors, batch, world_index, v4_only,
+                                 rule_axis, lb_probe_depth, fused,
+                                 not fused_policy)
     valid = pre["valid"]
     direction = batch["direction"]
     no_backend = pre["no_backend"]
     fwd_keys, rev_keys = pre["fwd_keys"], pre["rev_keys"]
 
     # conntrack probe (batch-start snapshot)
-    if shards > 1:
+    fwd_home: Optional[torch.Tensor] = None
+    if not fused:
+        fwd_home, rev_home = ctk.ct_home_pair(
+            fwd_keys, rev_keys, ct["expiry"].shape[0], shards)
+        fwd_slot, rev_slot = fk.ct_probe_pair_plain(
+            ct, fwd_keys, rev_keys, now, probe_depth, shards, fwd_home,
+            rev_home)
+    elif shards > 1:
         fwd_slot, rev_slot = fk.ct_probe_pair_sharded(
-            ct, fwd_keys, rev_keys, now, probe_depth, shards, fused=fused)
+            ct, fwd_keys, rev_keys, now, probe_depth, shards, True)
     else:
-        probe = fk.ct_probe_pair_fused if fused else fk.ct_probe_pair_plain
-        fwd_slot, rev_slot = probe(ct, fwd_keys, rev_keys, now, probe_depth)
+        fwd_slot, rev_slot = fk.ct_probe_pair_fused(
+            ct, fwd_keys, rev_keys, now, probe_depth)
     est = valid & (fwd_slot >= 0)
     reply = valid & ~est & (rev_slot >= 0)
     new = valid & ~est & ~reply
@@ -277,14 +335,14 @@ def classify_step(tensors, ct, batch, now, world_index=0, *,
             pre["l7_fail"], est, reply, valid)
         matched_rule = torch.where(valid & pre["enforced"], pre["mrule"],
                                    -1).to(torch.int32)
-    reason = torch.where(no_backend, int(C.DropReason.NO_SERVICE), reason)
+    reason = torch.where(no_backend, C.DropReason.NO_SERVICE.value, reason)
 
     new_ct, ct_full, entry_rnat, n_evicted = ct_update_stage(
         ct, fwd_keys, batch["proto"], batch["tcp_flags"], hit, hit_slot,
-        reply, new, allow, pre["rev_nat"], now, probe_depth, inplace=inplace,
-        shards=shards)
+        reply, new, allow, pre["rev_nat"], now, probe_depth, inplace,
+        shards, fwd_home)
     allow = allow & ~ct_full
-    reason = torch.where(ct_full, int(C.DropReason.CT_FULL),
+    reason = torch.where(ct_full, C.DropReason.CT_FULL.value,
                          reason).to(torch.int32)
 
     rnat, rnat_src, rnat_sport = resolve_rev_nat(
@@ -316,25 +374,112 @@ def classify_step(tensors, ct, batch, now, world_index=0, *,
     return out, new_ct, counters
 
 
+def classify_wire_step(tensors: Tensors, ct: Tensors,
+                       wire: List[torch.Tensor], now: int,
+                       world_index: int = 0, probe_depth: int = PROBE_DEPTH,
+                       v4_only: bool = False, lb_probe_depth: int = 8,
+                       fused: bool = True, inplace: bool = False,
+                       shards: int = 1) -> Tuple[Tensors, Tensors, Tensors]:
+    """``classify_step`` of a packed wire on the device (the list of
+    ``records.wire_parts``), unpacked inside the same call."""
+    return classify_step(tensors, ct, unpack_wire_parts(wire), now,
+                         world_index, probe_depth, v4_only, None,
+                         lb_probe_depth, fused, inplace, shards)
+
+
+# --------------------------------------------------------------------------- #
+# The scripted step
+# --------------------------------------------------------------------------- #
+_SCRIPTED: Dict[object, torch.jit.ScriptFunction] = {}
+_SCRIPT_LOCK = threading.Lock()
+
+
+def scripted(fn):
+    """``torch.jit.script(fn)``, compiled at its first use in the process
+    and kept. A function that does not compile raises here: there is no
+    eager stand-in."""
+    with _SCRIPT_LOCK:
+        got = _SCRIPTED.get(fn)
+        if got is None:
+            got = _SCRIPTED[fn] = torch.jit.script(fn)
+        return got
+
+
+def run_scripted(fn, *args, **kwargs):
+    """Call the scripted ``fn`` with the executor's optimisations off
+    (set for this thread, for this call): the graph runs the ops it was
+    written with, as the eager function does, with no profiling runs, no
+    shape specialisation and no fusion; the GIL is given up once for
+    the whole call."""
+    step = scripted(fn)
+    with torch.jit.optimized_execution(False):
+        return step(*args, **kwargs)
+
+
+#: make_classify_fn memo: one step per static configuration, LRU-bounded
+#: as the reference's is (its cap from ``CILIUM_TPU_CLASSIFY_FN_CACHE``,
+#: default 64); evictions are counted and exported by
+#: ``Engine.render_metrics`` (``classify_fn_cache_evictions_total``).
+FN_CACHE_CAP = max(1, int(os.environ.get("CILIUM_TPU_CLASSIFY_FN_CACHE",
+                                         "64")))
+_FN_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+_FN_LOCK = threading.Lock()
+_FN_EVICTIONS = [0]
+
+
+def fn_cache_stats() -> dict:
+    """The memo's current size, cap and eviction count."""
+    with _FN_LOCK:
+        return {"size": len(_FN_CACHE), "cap": FN_CACHE_CAP,
+                "evictions": _FN_EVICTIONS[0]}
+
+
 def make_classify_fn(probe_depth: int = PROBE_DEPTH, v4_only: bool = False,
                      donate_ct: bool = True, packed: bool = False,
                      lb_probe_depth: int = 8, fused: bool = True,
                      device="cuda"):
     """The classify step as ``fn(tensors, ct, batch, now, world_index)
-    → (out, new_ct, counters)``.
+    → (out, new_ct, counters)``: one call of the scripted
+    ``classify_step`` (``classify_wire_step`` with ``packed``), whose
+    kernel wrappers (``fused`` on the card) run between its torch ops.
 
     ``packed=True``: ``batch`` is a packed wire (``records.pack_batch*``;
     a uint32 array, a tuple of them for the dictionary wires, or the same
     as int32 tensors), moved to ``device`` and unpacked there. Otherwise a
     batch dict, of numpy arrays or of tensors. ``donate_ct=True`` updates
-    ``ct`` in place and returns it as ``new_ct``."""
+    ``ct`` in place and returns it as ``new_ct``.
+
+    Memoised on the whole static configuration, ``device`` included: a
+    caller that rebuilds its datapath gets the same callable, and the
+    scripted step is compiled once in the process, on first use."""
+    key = (probe_depth, v4_only, donate_ct, packed, lb_probe_depth, fused,
+           str(torch.device(device)))
+    with _FN_LOCK:
+        fn = _FN_CACHE.get(key)
+        if fn is not None:
+            _FN_CACHE.move_to_end(key)     # LRU touch
+            return fn
+    step = classify_wire_step if packed else classify_step
+    scripted(step)
+
     def fn(tensors, ct, batch, now, world_index):
         if packed:
-            batch = unpack_wire(wire_to_torch(batch, device))
+            batch = wire_parts(wire_to_torch(batch, device))
         elif any(isinstance(v, np.ndarray) for v in batch.values()):
             batch = batch_to_torch(batch, device)
-        return classify_step(tensors, ct, batch, now, world_index,
-                             probe_depth=probe_depth, v4_only=v4_only,
-                             lb_probe_depth=lb_probe_depth, fused=fused,
-                             inplace=donate_ct)
-    return fn
+        out, new_ct, counters = run_scripted(
+            step, tensors, ct, batch, int(now), int(world_index),
+            probe_depth=probe_depth, v4_only=v4_only,
+            lb_probe_depth=lb_probe_depth, fused=fused, inplace=donate_ct)
+        # donated: the step wrote the caller's tensors; hand back its dict
+        return out, (ct if donate_ct else new_ct), counters
+    with _FN_LOCK:
+        cached = _FN_CACHE.get(key)
+        if cached is not None:             # lost the build race: reuse
+            _FN_CACHE.move_to_end(key)
+            return cached
+        _FN_CACHE[key] = fn
+        while len(_FN_CACHE) > FN_CACHE_CAP:
+            _FN_CACHE.popitem(last=False)  # evict least-recently-used
+            _FN_EVICTIONS[0] += 1
+        return fn

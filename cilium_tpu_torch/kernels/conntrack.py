@@ -28,6 +28,8 @@ written).
 
 from __future__ import annotations
 
+from typing import Dict, Optional, Tuple
+
 import torch
 
 from cilium_tpu_torch.compile.ct_layout import PROBE_DEPTH
@@ -46,7 +48,7 @@ def _now(now) -> int:
 
 def _bits(v: int) -> int:
     """u32 value → the int32 holding its bit pattern."""
-    v &= _M32
+    v &= 0xFFFFFFFF
     return v - (1 << 32) if v >= (1 << 31) else v
 
 
@@ -56,59 +58,95 @@ def reverse_key_words(fwd_keys: torch.Tensor) -> torch.Tensor:
     flips (0 ↔ 1)."""
     w8 = u32(fwd_keys[:, 8])
     w9 = u32(fwd_keys[:, 9])
-    rot = ((w8 << 16) & _M32) | (w8 >> 16)
-    dirw = (w9 & 0xFFFFFF00) | ((1 - (w9 & 0xFF)) & _M32)
+    rot = ((w8 << 16) & 0xFFFFFFFF) | (w8 >> 16)
+    dirw = (w9 & 0xFFFFFF00) | ((1 - (w9 & 0xFF)) & 0xFFFFFFFF)
     return torch.cat([fwd_keys[:, 4:8], fwd_keys[:, 0:4],
                       i32(rot)[:, None], i32(dirw)[:, None]], dim=-1)
 
 
-def ct_key_words_pair(batch):
+def ct_key_words_pair(batch: Dict[str, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (fwd_keys, rev_keys), both [N,10] int32 bit patterns."""
     fwd = ct_key_words(batch, reverse=False)
     return fwd, reverse_key_words(fwd)
 
 
-def probe_window(keys, cap: int, shards: int = 1):
-    """Each key's probe window in a table of ``cap`` slots → ``slot(r)``,
-    the [N] int64 slot of every key's r-th probe. With ``shards`` > 1 the
-    table is that many equal power-of-two tables in slot-range order (a
-    co-located mesh's shard-major CT) and the rows are shard-major (row i
-    belongs to table ``i // (N // shards)``): each key walks its own
-    table's window, exactly as it would in that table alone."""
-    mask = cap // shards - 1
-    home = hash_words_u64(keys) & mask
-    if shards == 1:          # the one table starts at slot 0
-        return lambda r: (home + r) & mask
-    per = max(keys.shape[0] // shards, 1)
-    first = torch.arange(keys.shape[0], dtype=torch.int64,
-                         device=keys.device) // per * (mask + 1)
-    return lambda r: first + ((home + r) & mask)
+def key_home(keys: torch.Tensor, cap: int, shards: int = 1) -> torch.Tensor:
+    """Each key's home slot [N] int64 in its own table of a ``cap``-slot
+    table split into ``shards`` equal power-of-two tables (slot-range
+    order; see ``probe_window``), as an offset into that table."""
+    return hash_words_u64(keys) & (cap // shards - 1)
 
 
-def ct_probe_core(tab_keys, expiry, keys, now,
-                  probe_depth: int = PROBE_DEPTH, shards: int = 1):
+def ct_home_pair(fwd_keys: torch.Tensor, rev_keys: torch.Tensor, cap: int,
+                 shards: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both orientations' home slots (``key_home``) from ONE hash over the
+    two key blocks: the step hashes its CT keys once, and the forward
+    probe, the reverse probe and the insert read these."""
+    home = key_home(torch.cat([fwd_keys, rev_keys]), cap, shards)
+    n = fwd_keys.shape[0]
+    return home[:n], home[n:]
+
+
+def window_first(n: int, cap: int, shards: int,
+                 device: torch.device) -> Optional[torch.Tensor]:
+    """The first slot [n] int64 of each row's table when ``n`` shard-major
+    rows (row i belongs to table ``i // (n // shards)``) probe a
+    ``cap``-slot table of ``shards`` equal tables; None for one table,
+    which starts at slot 0."""
+    if shards == 1:
+        return None
+    per = max(n // shards, 1)
+    return torch.arange(n, dtype=torch.int64, device=device) // per \
+        * (cap // shards)
+
+
+def probe_window(home: torch.Tensor, r: int, mask: int,
+                 first: Optional[torch.Tensor]) -> torch.Tensor:
+    """The [N] int64 slot of every key's r-th probe: ``home`` (``key_home``)
+    plus r, wrapped by ``mask`` (its table's slots - 1), in the table
+    that starts at ``first`` (``window_first``). With several tables each
+    key walks its own table's window, exactly as it would in that table
+    alone."""
+    s = (home + r) & mask
+    if first is None:
+        return s
+    return first + s
+
+
+def ct_probe_core(tab_keys: torch.Tensor, expiry: torch.Tensor,
+                  keys: torch.Tensor, now: int,
+                  probe_depth: int = PROBE_DEPTH, shards: int = 1,
+                  home: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tab_keys [cap,10], expiry [cap] (int32 bit patterns) → each key's
     first live matching slot [N] int32 (-1 = miss). Run once per
     orientation, this is the plain version of kernel K2
-    (``fused.ct_probe_pair_fused``). ``shards``: see ``probe_window``."""
-    now = _now(now)
-    slot = probe_window(keys, expiry.shape[0], shards)
+    (``fused.ct_probe_pair_fused``). ``shards``: see ``probe_window``;
+    ``home``: the keys' ``key_home``, hashed here when not given."""
+    now = now & 0xFFFFFFFF
+    cap = expiry.shape[0]
+    if home is None:
+        home = key_home(keys, cap, shards)
+    mask = cap // shards - 1
+    first = window_first(keys.shape[0], cap, shards, keys.device)
     found = torch.full((keys.shape[0],), -1, dtype=torch.int64,
                        device=keys.device)
     for i in range(probe_depth):
-        s = slot(i)
+        s = probe_window(home, i, mask, first)
         live = u32(expiry[s]) > now
         eq = (tab_keys[s] == keys).all(dim=-1) & live
         found = torch.where((found < 0) & eq, s, found)
     return found.to(torch.int32)
 
 
-def ct_probe(ct, keys, now, probe_depth: int = PROBE_DEPTH):
+def ct_probe(ct: Dict[str, torch.Tensor], keys: torch.Tensor, now: int,
+             probe_depth: int = PROBE_DEPTH) -> torch.Tensor:
     """Find each key's live slot. → slot [N] int32 (-1 = miss)."""
     return ct_probe_core(ct["keys"], ct["expiry"], keys, now, probe_depth)
 
 
-def _flag_delta(proto, tcp_flags, is_reply):
+def _flag_delta(proto: torch.Tensor, tcp_flags: torch.Tensor,
+                is_reply: torch.Tensor) -> torch.Tensor:
     """Per-packet flag bits this packet ORs into its entry (int64)."""
     is_tcp = proto == C.PROTO_TCP
     fin_rst = (tcp_flags & (C.TCP_FIN | C.TCP_RST)) != 0
@@ -123,7 +161,7 @@ def _flag_delta(proto, tcp_flags, is_reply):
     return torch.where(is_tcp, delta, 0).to(torch.int64)
 
 
-def _lifetime(proto, flags):
+def _lifetime(proto: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
     """Entry lifetime in seconds from its proto and flags (int64)."""
     is_tcp = proto == C.PROTO_TCP
     closing = (flags & (C.CT_FLAG_TX_CLOSING | C.CT_FLAG_RX_CLOSING)) != 0
@@ -134,7 +172,8 @@ def _lifetime(proto, flags):
     return torch.where(is_tcp, tcp_life, C.CT_LIFETIME_NONTCP).to(torch.int64)
 
 
-def ct_evictable(slot_proto, flags):
+def ct_evictable(slot_proto: torch.Tensor, flags: torch.Tensor
+                 ) -> torch.Tensor:
     """Which live entries an exhausted insert may tail-evict: everything
     except established TCP (SEEN_NON_SYN and not closing)."""
     is_tcp = slot_proto == C.PROTO_TCP
@@ -143,14 +182,17 @@ def ct_evictable(slot_proto, flags):
     return ~(is_tcp & non_syn & ~closing)
 
 
-def _claim(target, idx, cap, n):
+def _claim(target: torch.Tensor, idx: torch.Tensor, cap: int,
+           n: int) -> torch.Tensor:
     """Lowest packet index per slot: [cap + 1] int64, ``n`` where no
     packet aimed (slot ``cap`` is the sink of non-attempts)."""
     claim = torch.full((cap + 1,), n, dtype=torch.int64, device=idx.device)
     return claim.scatter_reduce_(0, target, idx, "amin")
 
 
-def _write_winners(keys_arr, created_arr, slots, keys, claim, now_bits):
+def _write_winners(keys_arr: torch.Tensor, created_arr: torch.Tensor,
+                   slots: torch.Tensor, keys: torch.Tensor,
+                   claim: torch.Tensor, now_bits: int) -> None:
     """Write each claimed slot's winning key and created stamp without a
     host read. Every row writes its target ``slots`` [N] (all in
     ``[0, cap)``): the claim's winner (``claim[slot] < N``, the lowest
@@ -167,15 +209,21 @@ def _write_winners(keys_arr, created_arr, slots, keys, claim, now_bits):
     created_arr[slots] = torch.where(won, now_bits, created_arr[slots])
 
 
-def _adopt(pending, claimed, keys_arr, keys, s, slot_of):
+def _adopt(pending: torch.Tensor, claimed: torch.Tensor,
+           keys_arr: torch.Tensor, keys: torch.Tensor, s: torch.Tensor,
+           slot_of: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     adopted = pending & claimed[s] & (keys_arr[s] == keys).all(dim=-1)
     return torch.where(adopted, s, slot_of), pending & ~adopted
 
 
-def ct_insert_new(ct, keys, want_insert, now,
-                  probe_depth: int = PROBE_DEPTH,
-                  evict: bool = False, protected=None, inplace: bool = False,
-                  shards: int = 1):
+def ct_insert_new(ct: Dict[str, torch.Tensor], keys: torch.Tensor,
+                  want_insert: torch.Tensor, now: int,
+                  probe_depth: int = PROBE_DEPTH, evict: bool = False,
+                  protected: Optional[torch.Tensor] = None,
+                  inplace: bool = False, shards: int = 1,
+                  home: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor, torch.Tensor, torch.Tensor]:
     """Deterministic parallel insert of new flows.
 
     → (new_keys, new_created, zero_mask [cap] bool, slot_of [N] int32,
@@ -187,30 +235,34 @@ def ct_insert_new(ct, keys, want_insert, now,
     the windows of two tables never share a slot, so every claim, victim
     and adoption is the one each table's own insert makes, the lowest
     index in a table being its lowest row, and ``n_evicted`` is their
-    sum."""
-    now = _now(now)
+    sum. ``home``: the keys' ``key_home`` (the step's forward half of
+    ``ct_home_pair``), hashed here when not given."""
+    now = now & 0xFFFFFFFF
     now_bits = _bits(now)
     dev = keys.device
     cap = ct["expiry"].shape[0]
     n = keys.shape[0]
     idx = torch.arange(n, dtype=torch.int64, device=dev)
-    slot = probe_window(keys, cap, shards)
+    if home is None:
+        home = key_home(keys, cap, shards)
+    mask = cap // shards - 1
+    first = window_first(n, cap, shards, dev)
 
     keys_arr = ct["keys"] if inplace else ct["keys"].clone()
     created_arr = ct["created"] if inplace else ct["created"].clone()
     claimed = torch.zeros((cap + 1,), dtype=torch.bool, device=dev)
     slot_of = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    pending = want_insert.bool()
+    pending = want_insert.to(torch.bool)
     sink = torch.full_like(idx, cap)
 
     for r in range(probe_depth):
         if r > 0:
             # adoption: my previous round's target may now hold my key,
             # inserted by a lower-indexed duplicate of my flow
-            sprev = slot(r - 1)
+            sprev = probe_window(home, r - 1, mask, first)
             slot_of, pending = _adopt(pending, claimed, keys_arr, keys,
                                       sprev, slot_of)
-        s = slot(r)
+        s = probe_window(home, r, mask, first)
         free = (u32(ct["expiry"][s]) <= now) & ~claimed[s]
         attempt = pending & free
         claim = _claim(torch.where(attempt, s, sink), idx, cap, n)
@@ -223,7 +275,7 @@ def ct_insert_new(ct, keys, want_insert, now,
     # final adoption sweep: stragglers whose duplicate won at a slot they
     # already passed
     for r in range(probe_depth):
-        s = slot(r)
+        s = probe_window(home, r, mask, first)
         slot_of, pending = _adopt(pending, claimed, keys_arr, keys, s,
                                   slot_of)
 
@@ -234,9 +286,9 @@ def ct_insert_new(ct, keys, want_insert, now,
         # unprotected entries; ties to the earliest probe offset (strict
         # <), contested victims to the lowest packet index
         best_s = torch.full((n,), -1, dtype=torch.int64, device=dev)
-        best_e = torch.full((n,), _M32, dtype=torch.int64, device=dev)
+        best_e = torch.full((n,), 0xFFFFFFFF, dtype=torch.int64, device=dev)
         for r in range(probe_depth):
-            s = slot(r)
+            s = probe_window(home, r, mask, first)
             e = u32(ct["expiry"][s])
             slot_proto = u32(ct["keys"][s, 9]) >> 8
             cand = (pending & (e > now)
@@ -258,7 +310,7 @@ def ct_insert_new(ct, keys, want_insert, now,
         n_evicted = winner.sum().to(torch.int32)
         # adoption: duplicates of an evict-winner's key ride its new slot
         for r in range(probe_depth):
-            s = slot(r)
+            s = probe_window(home, r, mask, first)
             slot_of, pending = _adopt(pending, claimed, keys_arr, keys, s,
                                       slot_of)
 
@@ -268,15 +320,28 @@ def ct_insert_new(ct, keys, want_insert, now,
             pending, n_evicted)
 
 
-def ct_apply(ct, batch, slot, is_reply, contrib, now,
-             new_keys=None, new_created=None, zero_mask=None,
-             rev_nat_vals=None):
+def _count(rows: torch.Tensor, slot: torch.Tensor, sink: torch.Tensor,
+           cap: int) -> torch.Tensor:
+    """How many of ``rows`` aim at each slot: [cap] int64."""
+    add = torch.zeros((cap + 1,), dtype=torch.int64, device=slot.device)
+    add.index_add_(0, torch.where(rows, slot, sink), torch.ones_like(slot))
+    return add[:cap]
+
+
+def ct_apply(ct: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+             slot: torch.Tensor, is_reply: torch.Tensor,
+             contrib: torch.Tensor, now: int,
+             new_keys: Optional[torch.Tensor] = None,
+             new_created: Optional[torch.Tensor] = None,
+             zero_mask: Optional[torch.Tensor] = None,
+             rev_nat_vals: Optional[torch.Tensor] = None
+             ) -> Dict[str, torch.Tensor]:
     """Aggregate all allowed packets' effects into the table (snapshot
     semantics). ``slot`` [N] (-1 = none), ``contrib`` [N] bool,
     ``rev_nat_vals`` [N] int32 recorded for freshly created entries only.
     → the new CT dict (``keys``/``created`` are ``new_keys``/``new_created``
     when given; every other array is a new tensor)."""
-    now = _now(now)
+    now = now & 0xFFFFFFFF
     cap = ct["expiry"].shape[0]
     dev = slot.device
     keys_arr = new_keys if new_keys is not None else ct["keys"]
@@ -286,17 +351,19 @@ def ct_apply(ct, batch, slot, is_reply, contrib, now,
     slot = slot.to(torch.int64)
     sink = torch.full_like(slot, cap)
     if zero_mask is not None:
-        flags, fwd, rev, rnat = (torch.where(zero_mask, 0, a)
-                                 for a in (flags, fwd, rev, rnat))
-    if rev_nat_vals is not None and zero_mask is not None:
-        # create-time semantics: only freshly created entries record a
-        # rev-NAT id (duplicates of one flow carry the same value)
-        fresh = contrib & (slot >= 0) & zero_mask[torch.where(slot >= 0,
-                                                              slot, 0)]
-        buf = torch.zeros((cap + 1,), dtype=torch.int64, device=dev)
-        buf.scatter_reduce_(0, torch.where(fresh, slot, sink),
-                            u32(rev_nat_vals), "amax")
-        rnat = i32(torch.maximum(u32(rnat), buf[:cap]))
+        flags = torch.where(zero_mask, 0, flags)
+        fwd = torch.where(zero_mask, 0, fwd)
+        rev = torch.where(zero_mask, 0, rev)
+        rnat = torch.where(zero_mask, 0, rnat)
+        if rev_nat_vals is not None:
+            # create-time semantics: only freshly created entries record a
+            # rev-NAT id (duplicates of one flow carry the same value)
+            fresh = contrib & (slot >= 0) \
+                & zero_mask[torch.where(slot >= 0, slot, 0)]
+            buf = torch.zeros((cap + 1,), dtype=torch.int64, device=dev)
+            buf.scatter_reduce_(0, torch.where(fresh, slot, sink),
+                                u32(rev_nat_vals), "amax")
+            rnat = i32(torch.maximum(u32(rnat), buf[:cap]))
 
     scat = torch.where(contrib, slot, sink)
     delta = _flag_delta(batch["proto"], batch["tcp_flags"], is_reply)
@@ -312,14 +379,8 @@ def ct_apply(ct, batch, slot, is_reply, contrib, now,
         acc = acc | plane[:cap]
     flags = i32(acc)
 
-    def _count(rows):
-        add = torch.zeros((cap + 1,), dtype=torch.int64, device=dev)
-        add.index_add_(0, torch.where(rows, slot, sink),
-                       torch.ones_like(slot))
-        return add[:cap]
-
-    fwd = i32(u32(fwd) + _count(contrib & ~is_reply))
-    rev = i32(u32(rev) + _count(contrib & is_reply))
+    fwd = i32(u32(fwd) + _count(contrib & ~is_reply, slot, sink, cap))
+    rev = i32(u32(rev) + _count(contrib & is_reply, slot, sink, cap))
 
     touched = torch.zeros((cap + 1,), dtype=torch.bool, device=dev)
     touched.index_fill_(0, scat, True)

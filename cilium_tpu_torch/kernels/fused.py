@@ -19,17 +19,21 @@ torch version (``*_plain`` below), which is also what the tests and
 ``chip_smoke.py`` hold the kernel against. The kernels read every table
 from global memory, so unlike the TPU kernels (whose tables had to fit a
 VMEM budget) they run at every geometry: there is no residency gate.
+
+The scripted classify step (``kernels/classify.py``) calls each wrapper as
+a Python function (``torch.jit.ignore``): the launch happens between the
+scripted step's torch ops, and the wrappers' annotations are its
+signature for them (hence no postponed annotations in this module).
 """
 
-from __future__ import annotations
-
 import weakref
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from cilium_tpu_torch.kernels import _build
-from cilium_tpu_torch.kernels.conntrack import _now, ct_probe_core
+from cilium_tpu_torch.kernels.conntrack import (_now, ct_home_pair,
+                                                ct_probe_core)
 from cilium_tpu_torch.kernels.lpm import (LpmDerived, lpm_derive,
                                           lpm_walk_prov_core)
 
@@ -86,8 +90,10 @@ def _launch(lib: str, kernel: str, device, *args) -> None:
 # --------------------------------------------------------------------------- #
 # K1: LPM stride walk
 # --------------------------------------------------------------------------- #
-def lpm_lookup_plain(lpm_v4, lpm_v6, addr_words, is_v6, default_index,
-                     v4_only: bool = False):
+def lpm_lookup_plain(lpm_v4: torch.Tensor, lpm_v6: Optional[torch.Tensor],
+                     addr_words: torch.Tensor, is_v6: Optional[torch.Tensor],
+                     default_index: int, v4_only: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of K1 (kernels/lpm.lpm_walk_prov_core)."""
     return lpm_walk_prov_core(lpm_v4, lpm_v6, addr_words, is_v6,
                               default_index, v4_only=v4_only)
@@ -147,8 +153,11 @@ def _lpm_tables(nodes, name, dev):
     return (_cached(nodes) or _derive(nodes))[3]
 
 
-def lpm_lookup_fused(lpm_v4, lpm_v6, addr_words, is_v6, default_index,
-                     v4_only: bool = False):
+@torch.jit.ignore
+def lpm_lookup_fused(lpm_v4: torch.Tensor, lpm_v6: torch.Tensor,
+                     addr_words: torch.Tensor, is_v6: torch.Tensor,
+                     default_index: int, v4_only: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 → (identity index [N] int32, packed lpm_prefix provenance [N]
     int32, -1 on miss). ``default_index`` (the world index) is a runtime
     scalar. On the card the kernel walks ``lpm_derived``'s tables of both
@@ -184,15 +193,30 @@ def lpm_lookup_fused(lpm_v4, lpm_v6, addr_words, is_v6, default_index,
 # --------------------------------------------------------------------------- #
 # K2: forward + reverse CT probe
 # --------------------------------------------------------------------------- #
-def ct_probe_pair_plain(ct, fwd_keys, rev_keys, now, probe_depth: int):
-    """Plain torch version of K2: ``ct_probe_core`` once per orientation."""
+def ct_probe_pair_plain(ct: Dict[str, torch.Tensor], fwd_keys: torch.Tensor,
+                        rev_keys: torch.Tensor, now: int, probe_depth: int,
+                        shards: int = 1,
+                        fwd_home: Optional[torch.Tensor] = None,
+                        rev_home: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of K2: ``ct_probe_core`` once per orientation,
+    over a table of ``shards`` equal tables (``conntrack.probe_window``).
+    ``fwd_home``/``rev_home``: the keys' home slots, hoisted by the step
+    (``conntrack.ct_home_pair``); hashed here, once for both, when not
+    given."""
+    if fwd_home is None or rev_home is None:
+        fwd_home, rev_home = ct_home_pair(fwd_keys, rev_keys,
+                                          ct["expiry"].shape[0], shards)
     return (ct_probe_core(ct["keys"], ct["expiry"], fwd_keys, now,
-                          probe_depth),
+                          probe_depth, shards, fwd_home),
             ct_probe_core(ct["keys"], ct["expiry"], rev_keys, now,
-                          probe_depth))
+                          probe_depth, shards, rev_home))
 
 
-def ct_probe_pair_fused(ct, fwd_keys, rev_keys, now, probe_depth: int):
+@torch.jit.ignore
+def ct_probe_pair_fused(ct: Dict[str, torch.Tensor], fwd_keys: torch.Tensor,
+                        rev_keys: torch.Tensor, now: int, probe_depth: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 → (fwd_slot, rev_slot), each [N] int32 (-1 = miss). The kernel
     reads key words as 8-byte pairs: ``ct["keys"]``, ``fwd_keys`` and
     ``rev_keys`` must be 8-byte aligned."""
@@ -213,18 +237,20 @@ def ct_probe_pair_fused(ct, fwd_keys, rev_keys, now, probe_depth: int):
     return fwd_slot, rev_slot
 
 
-def ct_probe_pair_sharded(ct, fwd_keys, rev_keys, now, probe_depth: int,
-                          shards: int, fused: bool = True):
+@torch.jit.ignore
+def ct_probe_pair_sharded(ct: Dict[str, torch.Tensor],
+                          fwd_keys: torch.Tensor, rev_keys: torch.Tensor,
+                          now: int, probe_depth: int, shards: int,
+                          fused: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The probe pair over a shard-major table of ``shards`` equal tables
     (rows shard-major, ``conntrack.probe_window``) → global slots. With
     ``fused``, K2 runs once per table, on its slot range and its rows,
     and each hit is offset by the range's first slot; otherwise the plain
     version runs once over every row."""
     if not fused:
-        return (ct_probe_core(ct["keys"], ct["expiry"], fwd_keys, now,
-                              probe_depth, shards),
-                ct_probe_core(ct["keys"], ct["expiry"], rev_keys, now,
-                              probe_depth, shards))
+        return ct_probe_pair_plain(ct, fwd_keys, rev_keys, now, probe_depth,
+                                   shards)
     local = ct["expiry"].shape[0] // shards
     per = fwd_keys.shape[0] // shards
     fwd, rev = [], []
@@ -251,8 +277,15 @@ def policy_verdict_plain(tensors, ep_slot, direction, id_idx, proto, dport,
                                   valid)
 
 
-def policy_verdict_fused(tensors, ep_slot, direction, id_idx, proto, dport,
-                         http_method, http_path, est, reply, valid):
+@torch.jit.ignore
+def policy_verdict_fused(tensors: Dict[str, torch.Tensor],
+                         ep_slot: torch.Tensor, direction: torch.Tensor,
+                         id_idx: torch.Tensor, proto: torch.Tensor,
+                         dport: torch.Tensor, http_method: torch.Tensor,
+                         http_path: torch.Tensor, est: torch.Tensor,
+                         reply: torch.Tensor, valid: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                    torch.Tensor, torch.Tensor]:
     """K3 → (allow [N] bool, reason [N] int32, status [N] int32,
     redirect [N] bool, matched_rule [N] int32). ``enforced`` and
     ``l7_valid`` may be bool or uint8. The kernel reads ``http_path`` and

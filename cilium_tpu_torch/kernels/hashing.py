@@ -10,6 +10,11 @@ Also home of the two u32 lane helpers every module of the port uses:
 ``i32`` narrows an int64 back to the int32 that holds its low 32 bits.
 Torch has no unsigned 32-bit shift, add, compare or modulo on the CPU, and
 int32 ``>>`` is arithmetic, so all u32 arithmetic runs in int64.
+
+The torch functions compile under ``torch.jit.script`` (the CPU step is
+one scripted call, ``kernels/classify.py``), which reads no module-level
+number: they spell their constants as literals, the numpy mirror reads
+the named ones, and the tests hold the two equal.
 """
 
 from __future__ import annotations
@@ -20,17 +25,16 @@ import torch
 _C1 = 0xCC9E2D51
 _C2 = 0x1B873593
 _SEED = 0x9747B28C
-_M32 = 0xFFFFFFFF
 
 
 def u32(x: torch.Tensor) -> torch.Tensor:
     """int32 (or any integer) bit pattern → its u32 value as int64."""
-    return x.to(torch.int64) & _M32
+    return x.to(torch.int64) & 0xFFFFFFFF
 
 
 def i32(x: torch.Tensor) -> torch.Tensor:
     """int64 → the int32 holding its low 32 bits (two's complement)."""
-    return (((x & _M32) ^ 0x80000000) - 0x80000000).to(torch.int32)
+    return (((x & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(torch.int32)
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -38,32 +42,33 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     split c into 16-bit halves so every partial product stays < 2^48."""
     lo = x * (c & 0xFFFF)
     hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
+    return (lo + hi) & 0xFFFFFFFF
 
 
 def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) & _M32) | (x >> (32 - r))
+    return ((x << r) & 0xFFFFFFFF) | (x >> (32 - r))
 
 
 def hash_words_u64(words: torch.Tensor) -> torch.Tensor:
     """words [..., K] (int32 bit patterns or u32 values in int64) → the
-    hash [...] as a u32 value in int64."""
+    hash [...] as a u32 value in int64 (seed ``_SEED``, multipliers
+    ``_C1``, ``_C2``)."""
     w = u32(words)
-    h = torch.full(w.shape[:-1], _SEED, dtype=torch.int64, device=w.device)
+    h = torch.full(w.shape[:-1], 0x9747B28C, dtype=torch.int64,
+                   device=w.device)
     for i in range(w.shape[-1]):
-        k = _mul32(w[..., i], _C1)
+        k = _mul32(w[..., i], 0xCC9E2D51)
         k = _rotl32(k, 15)
-        k = _mul32(k, _C2)
+        k = _mul32(k, 0x1B873593)
         h = h ^ k
         h = _rotl32(h, 13)
-        h = (_mul32(h, 5) + 0xE6546B64) & _M32
+        h = (_mul32(h, 5) + 0xE6546B64) & 0xFFFFFFFF
     h = h ^ (h >> 16)
     h = _mul32(h, 0x85EBCA6B)
     h = h ^ (h >> 13)
     h = _mul32(h, 0xC2B2AE35)
     h = h ^ (h >> 16)
     return h
-
 
 
 def hash_words_np(words: np.ndarray) -> np.ndarray:

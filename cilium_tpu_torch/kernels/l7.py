@@ -7,17 +7,20 @@ vacuously matches.
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
 from cilium_tpu_torch.utils import constants as C
 
 
-def l7_match_core(tensors, set_id, method, path):
+def l7_match_core(tensors: Dict[str, torch.Tensor], set_id: torch.Tensor,
+                  method: torch.Tensor, path: torch.Tensor) -> torch.Tensor:
     """set_id [N] int32 (0 = none), method [N] int32, path [N,64] uint8
     → matched [N] bool (True for set_id <= 0)."""
     sid = set_id.clamp(0, tensors["l7_methods"].shape[0] - 1).to(torch.int64)
     m = tensors["l7_methods"][sid].to(torch.int32)          # [N,R]
-    valid = tensors["l7_valid"][sid].bool()                 # [N,R]
+    valid = tensors["l7_valid"][sid].to(torch.bool)                 # [N,R]
     plen = tensors["l7_path_len"][sid]                      # [N,R]
     prefix = tensors["l7_path"][sid]                        # [N,R,64]
     m_ok = (m == C.HTTP_METHOD_ANY) | (m == method[:, None])
@@ -27,4 +30,4 @@ def l7_match_core(tensors, set_id, method, path):
                | (pos[None, None, :] >= plen[:, :, None]))
     p_ok = byte_ok.all(dim=-1)
     any_rule = (valid & m_ok & p_ok).any(dim=-1)
-    return torch.where(set_id <= 0, True, any_rule)
+    return (set_id <= 0) | any_rule

@@ -4,12 +4,17 @@ DNAT rewrite (port of ``cilium_tpu/kernels/lb.py``).
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 
 from cilium_tpu_torch.kernels.hashing import hash_words_u64, i32, u32
 
 
-def lb_step(tensors, batch, probe_depth: int = 8):
+def lb_step(tensors: Dict[str, torch.Tensor],
+            batch: Dict[str, torch.Tensor], probe_depth: int = 8
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor]:
     """→ (new_dst [N,4], new_dport [N], rev_nat [N], no_backend [N]).
 
     ``rev_nat`` is the frontend's stable rev-NAT id + 1 (0 = untranslated);

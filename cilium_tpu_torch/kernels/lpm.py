@@ -17,15 +17,17 @@ walk, which the tests also hold against JAX.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from cilium_tpu_torch.compile.lpm import V4_LEVELS, V6_LEVELS
+from cilium_tpu_torch.compile import lpm as lpm_layout
 from cilium_tpu_torch.kernels.hashing import i32, u32
 
 
-def _walk(nodes, addr_words, first_byte, levels, default_index):
+def _walk(nodes: torch.Tensor, addr_words: torch.Tensor, first_byte: int,
+          levels: int, default_index: int) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
     """nodes [n,256,3] int32; addr_words [N,4] (u32 bit patterns); level l
     reads byte ``first_byte + l`` of the 16-byte address. → (best identity
     index [N], best packed provenance [N], -1 on miss)."""
@@ -33,7 +35,7 @@ def _walk(nodes, addr_words, first_byte, levels, default_index):
     n = addr_words.shape[0]
     flat = nodes.reshape(-1, 3)
     node = torch.zeros((n,), dtype=torch.int64, device=addr_words.device)
-    best = torch.full((n,), int(default_index), dtype=torch.int32,
+    best = torch.full((n,), default_index, dtype=torch.int32,
                       device=addr_words.device)
     best_meta = torch.full((n,), -1, dtype=torch.int32,
                            device=addr_words.device)
@@ -50,16 +52,22 @@ def _walk(nodes, addr_words, first_byte, levels, default_index):
     return best, best_meta
 
 
-def lpm_walk_prov_core(lpm_v4, lpm_v6, addr_words, is_v6, default_index,
-                       v4_only: bool = False):
+def lpm_walk_prov_core(lpm_v4: torch.Tensor, lpm_v6: Optional[torch.Tensor],
+                       addr_words: torch.Tensor,
+                       is_v6: Optional[torch.Tensor], default_index: int,
+                       v4_only: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[N,4] v4-mapped address words → (identity index [N] int32, packed
     lpm_prefix provenance [N] int32, -1 on miss). ``v4_only`` elides the
     16-level v6 chain (``lpm_v6`` and ``is_v6`` may then be None)."""
-    r4, m4 = _walk(lpm_v4, addr_words, 12, V4_LEVELS, default_index)
+    r4, m4 = _walk(lpm_v4, addr_words, 12, lpm_layout.V4_LEVELS,
+                   default_index)
     if v4_only:
         return r4, m4
-    r6, m6 = _walk(lpm_v6, addr_words, 0, V6_LEVELS, default_index)
-    v6 = is_v6.bool()
+    assert lpm_v6 is not None and is_v6 is not None
+    r6, m6 = _walk(lpm_v6, addr_words, 0, lpm_layout.V6_LEVELS,
+                   default_index)
+    v6 = is_v6.to(torch.bool)
     return torch.where(v6, r6, r4), torch.where(v6, m6, m4)
 
 
@@ -195,6 +203,6 @@ def lpm_walk_derived(d4: LpmDerived, d6: LpmDerived, addr_words, is_v6,
     addr_bytes = _bytes(addr_words)
     r4, m4, s4 = _walk_derived(d4, addr_bytes, 12, default_index)
     r6, m6, s6 = _walk_derived(d6, addr_bytes, 0, default_index)
-    v6 = is_v6.bool()
+    v6 = is_v6.to(torch.bool)
     return (torch.where(v6, r6, r4), torch.where(v6, m6, m4),
             torch.where(v6, s6, s4))

@@ -18,22 +18,24 @@ the rules axis, here explicit moves to the flow shard's device and a
 sum). ``matched_rule`` uses the global id class.
 """
 
-from __future__ import annotations
-
-from typing import NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from cilium_tpu_torch.utils import constants as C
 
 
-def _take(table, idx):
+def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Flat gather with the reference's clamp of out-of-range indices."""
     flat = table.reshape(-1)
     return flat[idx.to(torch.int64).clamp(0, flat.shape[0] - 1)]
 
 
-def policy_core(tensors, ep_slot, direction, id_index, proto, dport):
+def policy_core(tensors: Dict[str, torch.Tensor], ep_slot: torch.Tensor,
+                direction: torch.Tensor, id_index: torch.Tensor,
+                proto: torch.Tensor, dport: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
     """→ (decision [N] int32, l7_id [N] int32, enforced [N] bool,
     matched_rule [N] int32 — unmasked cell coordinate)."""
     n_ids = tensors["id_class_of"].shape[0]
@@ -43,14 +45,14 @@ def policy_core(tensors, ep_slot, direction, id_index, proto, dport):
     pcls = _take(tensors["port_class"],
                  fam.to(torch.int64) * n_ports + dport.clamp(0, n_ports - 1))
     v = tensors["verdict"]
-    n_eps, _, n_rows, n_cols = v.shape
+    n_eps, n_rows, n_cols = v.shape[0], v.shape[2], v.shape[3]
     ep = ep_slot.clamp(0, n_eps - 1).to(torch.int64)
     d = direction.clamp(0, 1).to(torch.int64)
     cls = id_cls.clamp(0, n_rows - 1).to(torch.int64)
     pc = pcls.clamp(0, n_cols - 1).to(torch.int64)
     cell = _take(v, ((ep * 2 + d) * n_rows + cls) * n_cols + pc
                  ).to(torch.int32) & 0xFFFF
-    enforced = _take(tensors["enforced"], ep * 2 + d).bool()
+    enforced = _take(tensors["enforced"], ep * 2 + d).to(torch.bool)
     decision = cell & C.VERDICT_DECISION_MASK
     l7_id = cell >> C.VERDICT_L7_SHIFT
     matched_rule = (id_cls * n_cols + pcls).to(torch.int32)
@@ -63,15 +65,17 @@ class RuleAxis(NamedTuple):
     order, each on that rule shard's device. Rule shard ``r`` owns the
     global id-class rows ``[r * rows_local, (r + 1) * rows_local)``; the
     rule width is ``len(verdicts)``."""
-    verdicts: Tuple[torch.Tensor, ...]
+    verdicts: List[torch.Tensor]
 
 
-def rule_shard_cell(verdict_local, rule_index, ep, d, id_cls, pcls):
+def rule_shard_cell(verdict_local: torch.Tensor, rule_index: int,
+                    ep: torch.Tensor, d: torch.Tensor, id_cls: torch.Tensor,
+                    pcls: torch.Tensor) -> torch.Tensor:
     """One rule shard's cell [N] int32 on its own device: the cell where
     ``id_cls`` falls in this shard's row range, 0 elsewhere."""
     dev = verdict_local.device
-    ep, d, id_cls, pcls = (x.to(dev) for x in (ep, d, id_cls, pcls))
-    n_eps, _, rows_local, n_cols = verdict_local.shape
+    ep, d, id_cls, pcls = ep.to(dev), d.to(dev), id_cls.to(dev), pcls.to(dev)
+    rows_local, n_cols = verdict_local.shape[2], verdict_local.shape[3]
     local = id_cls - rule_index * rows_local
     in_range = (local >= 0) & (local < rows_local)
     safe = local.clamp(0, rows_local - 1)
@@ -80,8 +84,13 @@ def rule_shard_cell(verdict_local, rule_index, ep, d, id_cls, pcls):
     return torch.where(in_range, cell, 0)
 
 
-def policy_lookup_batch(tensors, ep_slot, direction, id_index, proto, dport,
-                        rule_axis=None):
+def policy_lookup_batch(tensors: Dict[str, torch.Tensor],
+                        ep_slot: torch.Tensor, direction: torch.Tensor,
+                        id_index: torch.Tensor, proto: torch.Tensor,
+                        dport: torch.Tensor,
+                        rule_axis: Optional[RuleAxis] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
     """→ (decision [N] int32, l7_id [N] int32, enforced [N] bool,
     matched_rule [N] int32). Without ``rule_axis`` the dense lookup
     (``policy_core``); with a :class:`RuleAxis` the sum of every rule
@@ -96,14 +105,16 @@ def policy_lookup_batch(tensors, ep_slot, direction, id_index, proto, dport,
     n_ports = tensors["port_class"].shape[1]
     pcls = _take(tensors["port_class"], fam.to(torch.int64) * n_ports
                  + dport.clamp(0, n_ports - 1)).to(torch.int64)
-    n_eps, _, _rows, n_cols = rule_axis.verdicts[0].shape
+    v0 = rule_axis.verdicts[0]
+    n_eps, n_cols = v0.shape[0], v0.shape[3]
     ep = ep_slot.clamp(0, n_eps - 1).to(torch.int64)
     d = direction.clamp(0, 1).to(torch.int64)
     pc = pcls.clamp(0, n_cols - 1)
     dev = id_index.device
-    cell = sum(rule_shard_cell(v, r, ep, d, id_cls, pc).to(dev)
-               for r, v in enumerate(rule_axis.verdicts))
-    enforced = _take(tensors["enforced"], ep * 2 + d).bool()
+    cell = torch.zeros(id_index.shape, dtype=torch.int32, device=dev)
+    for r, v in enumerate(rule_axis.verdicts):
+        cell = cell + rule_shard_cell(v, r, ep, d, id_cls, pc).to(dev)
+    enforced = _take(tensors["enforced"], ep * 2 + d).to(torch.bool)
     decision = cell & C.VERDICT_DECISION_MASK
     l7_id = cell >> C.VERDICT_L7_SHIFT
     matched_rule = (id_cls * n_cols + pcls).to(torch.int32)

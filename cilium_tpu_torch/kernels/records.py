@@ -12,7 +12,8 @@ and the rest keep the reference's dtypes (int32 columns, bool ``is_v6`` and
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import sys
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,11 +114,12 @@ def ct_key_words(batch: Dict[str, torch.Tensor],
                  reverse: bool = False) -> torch.Tensor:
     """[N, 10] conntrack key (int32 bit patterns of the reference's uint32
     words; see compile/ct_layout.py), forward or reverse orientation."""
-    src, dst = ((batch["dst"], batch["src"]) if reverse
-                else (batch["src"], batch["dst"]))
-    sport, dport = ((batch["dport"], batch["sport"]) if reverse
-                    else (batch["sport"], batch["dport"]))
-    direction = (1 - batch["direction"]) if reverse else batch["direction"]
+    src, dst = batch["src"], batch["dst"]
+    sport, dport = batch["sport"], batch["dport"]
+    direction = batch["direction"]
+    if reverse:
+        src, dst, sport, dport = dst, src, dport, sport
+        direction = 1 - direction
     port_w = i32((u32(sport) << 16) | u32(dport))
     proto_w = i32((u32(batch["proto"]) << 8) | u32(direction))
     return torch.cat([src.to(torch.int32), dst.to(torch.int32),
@@ -424,6 +426,11 @@ def wire_to_torch(wire, device="cuda"):
     return torch.tensor(arr, device=device)
 
 
+#: this module, as the scripted unpackers read its wire widths:
+#: TorchScript reads a number only as an attribute of a module
+_LAYOUT = sys.modules[__name__]
+
+
 def _field(w: torch.Tensor, shift: int, mask: int) -> torch.Tensor:
     """Logical (u32) ``(w >> shift) & mask`` of an int32 bit pattern."""
     return ((u32(w) >> shift) & mask).to(torch.int32)
@@ -438,7 +445,7 @@ def _words_to_path(words: torch.Tensor) -> torch.Tensor:
                        dim=-1).reshape(n, -1).to(torch.uint8)
     pad = C.L7_PATH_MAXLEN - path.shape[1]
     if pad > 0:
-        path = torch.nn.functional.pad(path, (0, pad))
+        path = torch.nn.functional.pad(path, [0, pad])
     return path
 
 
@@ -448,13 +455,14 @@ def _dict_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx.clamp(0, table.shape[0] - 1).to(torch.int64)]
 
 
-def _no_l7(n: int, device) -> Dict[str, torch.Tensor]:
-    return {
-        "http_method": torch.full((n,), C.HTTP_METHOD_ANY, dtype=torch.int32,
-                                  device=device),
-        "http_path": torch.zeros((n, C.L7_PATH_MAXLEN), dtype=torch.uint8,
-                                 device=device),
-    }
+def _no_l7(b: Dict[str, torch.Tensor], n: int,
+           device: torch.device) -> Dict[str, torch.Tensor]:
+    """``b`` with the columns of a batch without L7 tokens."""
+    b["http_method"] = torch.full((n,), C.HTTP_METHOD_ANY,
+                                  dtype=torch.int32, device=device)
+    b["http_path"] = torch.zeros((n, C.L7_PATH_MAXLEN), dtype=torch.uint8,
+                                 device=device)
+    return b
 
 
 def unpack_batch(packed: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -469,15 +477,16 @@ def unpack_batch(packed: torch.Tensor) -> Dict[str, torch.Tensor]:
         "proto": _field(w9, 24, 0xFF),
         "tcp_flags": _field(w9, 16, 0xFF),
         "http_method": _field(w9, 8, 0xFF),
-        "is_v6": _field(w9, 2, 1).bool(),
+        "is_v6": _field(w9, 2, 1).to(torch.bool),
         "direction": _field(w9, 1, 1),
-        "valid": _field(w9, 0, 1).bool(),
+        "valid": _field(w9, 0, 1).to(torch.bool),
         "ep_slot": packed[:, 10].contiguous(),
     }
-    if packed.shape[1] > PACK_WORDS:
-        b["http_path"] = _words_to_path(packed[:, PACK_WORDS:])
+    if packed.shape[1] > _LAYOUT.PACK_WORDS:
+        b["http_path"] = _words_to_path(packed[:, _LAYOUT.PACK_WORDS:])
     else:
-        b["http_path"] = _no_l7(n, packed.device)["http_path"]
+        b["http_path"] = torch.zeros((n, C.L7_PATH_MAXLEN),
+                                     dtype=torch.uint8, device=packed.device)
     return b
 
 
@@ -497,26 +506,26 @@ def unpack_batch_v4(packed: torch.Tensor) -> Dict[str, torch.Tensor]:
         "tcp_flags": _field(w3, 16, 0xFF),
         "is_v6": torch.zeros((n,), dtype=torch.bool, device=packed.device),
         "direction": _field(w3, 1, 1),
-        "valid": _field(w3, 0, 1).bool(),
-        "ep_slot": _field(w3, 2, PACK4_EP_SLOT_MAX),
+        "valid": _field(w3, 0, 1).to(torch.bool),
+        "ep_slot": _field(w3, 2, _LAYOUT.PACK4_EP_SLOT_MAX),
     }
-    b.update(_no_l7(n, packed.device))
-    return b
+    return _no_l7(b, n, packed.device)
 
 
 def unpack_batch_l7dict(wire: torch.Tensor,
                         dict_words: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Either L7 path-dictionary wire ([N, 5] or [N, 12]) → batch dict."""
-    if wire.shape[1] == PACK4_L7_WORDS:
-        b = unpack_batch_v4(wire[:, :PACK4_WORDS])
+    if wire.shape[1] == _LAYOUT.PACK4_L7_WORDS:
+        b = unpack_batch_v4(wire[:, :_LAYOUT.PACK4_WORDS])
         w4 = wire[:, 4]
         b["http_method"] = _field(w4, 24, 0xFF)
         b["http_path"] = _words_to_path(
             _dict_rows(dict_words, _field(w4, 0, 0xFFFF)))
         return b
-    b = unpack_batch(wire[:, :PACK_WORDS])
+    b = unpack_batch(wire[:, :_LAYOUT.PACK_WORDS])
     b["http_path"] = _words_to_path(
-        _dict_rows(dict_words, _field(wire[:, PACK_WORDS], 0, 0xFFFF)))
+        _dict_rows(dict_words,
+                   _field(wire[:, _LAYOUT.PACK_WORDS], 0, 0xFFFF)))
     return b
 
 
@@ -533,33 +542,48 @@ def unpack_batch_addrdict(wire: torch.Tensor, addr_dict: torch.Tensor,
         "dport": _field(wire[:, 1], 0, 0xFFFF),
         "proto": _field(w2, 24, 0xFF),
         "tcp_flags": _field(w2, 16, 0xFF),
-        "ep_slot": _field(w2, 3, PACKA_EP_SLOT_MAX),
-        "is_v6": _field(w2, 2, 1).bool(),
+        "ep_slot": _field(w2, 3, _LAYOUT.PACKA_EP_SLOT_MAX),
+        "is_v6": _field(w2, 2, 1).to(torch.bool),
         "direction": _field(w2, 1, 1),
-        "valid": _field(w2, 0, 1).bool(),
+        "valid": _field(w2, 0, 1).to(torch.bool),
     }
-    if wire.shape[1] == PACKA_L7_WORDS and path_dict is not None:
+    if wire.shape[1] == _LAYOUT.PACKA_L7_WORDS and path_dict is not None:
         w3 = wire[:, 3]
         b["http_method"] = _field(w3, 16, 0xFF)
         b["http_path"] = _words_to_path(
             _dict_rows(path_dict, _field(w3, 0, 0xFFFF)))
-    else:
-        b.update(_no_l7(n, wire.device))
-    return b
+        return b
+    return _no_l7(b, n, wire.device)
+
+
+def unpack_wire_parts(parts: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A packed wire as the list of its tensors (the wire, then its
+    dictionaries) → the standard batch dict, dispatching on the count and
+    the wire's width: more than one part is a dictionary wire (address or
+    L7 path), [N, 4] alone is compact v4, anything else the full
+    layout."""
+    wire = parts[0]
+    if len(parts) > 1:
+        if wire.shape[1] == _LAYOUT.PACKA_WORDS \
+                or wire.shape[1] == _LAYOUT.PACKA_L7_WORDS:
+            return unpack_batch_addrdict(
+                wire, parts[1], parts[2] if len(parts) > 2 else None)
+        return unpack_batch_l7dict(wire, parts[1])
+    if wire.shape[1] == _LAYOUT.PACK4_WORDS:
+        return unpack_batch_v4(wire)
+    return unpack_batch(wire)
+
+
+def wire_parts(batch) -> List[torch.Tensor]:
+    """A wire on the device (a tensor, or the tuple of a dictionary wire)
+    → the list ``unpack_wire_parts`` takes."""
+    return list(batch) if isinstance(batch, (tuple, list)) else [batch]
 
 
 def unpack_wire(batch) -> Dict[str, torch.Tensor]:
-    """Any packed wire form → the standard batch dict, dispatching on the
-    wire's width: a tuple is a dictionary wire (address or L7 path),
-    [N, 4] is compact v4, anything else the full layout."""
-    if isinstance(batch, (tuple, list)):
-        wire = batch[0]
-        if wire.shape[1] in (PACKA_WORDS, PACKA_L7_WORDS):
-            return unpack_batch_addrdict(*batch)
-        return unpack_batch_l7dict(*batch)
-    if batch.shape[1] == PACK4_WORDS:
-        return unpack_batch_v4(batch)
-    return unpack_batch(batch)
+    """Any packed wire form on the device → the standard batch dict
+    (``unpack_wire_parts``)."""
+    return unpack_wire_parts(wire_parts(batch))
 
 
 def batch_to_torch(b: BatchArrays, device="cuda") -> Dict[str, torch.Tensor]:

@@ -49,6 +49,7 @@ from cilium_tpu_torch.kernels.classify import (classify_pre_ct,
                                                compose_verdict,
                                                ct_update_stage,
                                                resolve_rev_nat,
+                                               run_scripted,
                                                tally_by_reason_dir)
 from cilium_tpu_torch.kernels.hashing import hash_words_u64, u32
 from cilium_tpu_torch.utils import constants as C
@@ -185,9 +186,10 @@ def ct_exchange_serve(ct, req_flat, shard: int, n_shards: int, now,
     allow = torch.where(hit, allow_if_hit, allow_if_new)
 
     proto = (u32(fwd_keys[:, 9]) >> 8).to(torch.int32)
-    new_ct, ct_full, entry_rnat, n_evicted = ct_update_stage(
-        ct, fwd_keys, proto, tcp_flags, hit, hit_slot, reply, new, allow,
-        rev_nat_vals, now, probe_depth, inplace=inplace)
+    new_ct, ct_full, entry_rnat, n_evicted = run_scripted(
+        ct_update_stage, ct, fwd_keys, proto, tcp_flags, hit, hit_slot,
+        reply, new, allow, rev_nat_vals, int(now), probe_depth,
+        inplace=inplace)
     rep = pack_replies(est, reply, ct_full, entry_rnat, mine)
     return rep, new_ct, ct_full.sum().to(torch.int32), n_evicted
 
@@ -210,10 +212,10 @@ def classify_step_exchange(tensors, cts, batches, now, world_index=0, *,
     # 1. pre-CT on every shard
     pres, reqs = [], []
     for i in range(n):
-        pre = classify_pre_ct(tensors[i], batches[i], world_index,
-                              v4_only=v4_only, rule_axis=rule_axes[i],
-                              lb_probe_depth=lb_probe_depth, fused=fused,
-                              split_interior=True)
+        b, pre = classify_pre_ct(tensors[i], batches[i], world_index,
+                                 v4_only=v4_only, rule_axis=rule_axes[i],
+                                 lb_probe_depth=lb_probe_depth, fused=fused,
+                                 split_interior=True)
         valid = pre["valid"]
         ones = torch.ones_like(valid)
         zeros = torch.zeros_like(valid)
@@ -226,8 +228,8 @@ def classify_step_exchange(tensors, cts, batches, now, world_index=0, *,
         allow_if_new = compose_verdict(
             pre["decision"], pre["enforced"], pre["cell_redirect"],
             pre["l7_fail"], zeros, zeros, valid)[0]
-        pres.append(pre)
-        reqs.append(pack_requests(pre["fwd_keys"], pre["batch"]["tcp_flags"],
+        pres.append((pre, b))
+        reqs.append(pack_requests(pre["fwd_keys"], b["tcp_flags"],
                                   valid, allow_if_hit, allow_if_new,
                                   pre["rev_nat"]))
     local_rows = reqs[0].shape[0]
@@ -247,7 +249,7 @@ def classify_step_exchange(tensors, cts, batches, now, world_index=0, *,
     # 5. compose on every shard
     outs, counters = [], []
     for i in range(n):
-        pre, b = pres[i], pres[i]["batch"]
+        pre, b = pres[i]
         valid, no_backend = pre["valid"], pre["no_backend"]
         est, reply, ct_full, entry_rnat = unpack_replies(homes[i])
         allow, reason, status, redirect = compose_verdict(

@@ -433,9 +433,9 @@ def shard_views(placed: Dict[Any, Dict], mesh: TorchMesh):
             continue
         views.append({k: v for k, v in own.items()
                       if not k.startswith("verdict.")})
-        axes.append(RuleAxis(tuple(
+        axes.append(RuleAxis([
             placed[mesh.device_of(f, r)][verdict_slice_name(r)]
-            for r in range(n_rule))))
+            for r in range(n_rule)]))
     return views, axes
 
 
@@ -516,9 +516,16 @@ def whole_batch(batch, mesh: TorchMesh) -> Dict[str, Any]:
     """A column dict (numpy), a packed wire or a ``(wire, dict...)``
     tuple → one unpacked batch dict of all its rows on a co-located
     mesh's device. The rows must divide the flow axis."""
-    from cilium_tpu_torch.kernels.records import (batch_to_torch,
-                                                  unpack_wire,
-                                                  wire_to_torch)
+    from cilium_tpu_torch.kernels.records import unpack_wire_parts
+    whole = _whole_parts(batch, mesh)
+    return unpack_wire_parts(whole) if isinstance(whole, list) else whole
+
+
+def _whole_parts(batch, mesh: TorchMesh):
+    """``whole_batch`` before the unpack: a column dict as a batch dict of
+    tensors, a wire as the list of its tensors (``records.wire_parts``),
+    on the mesh's first device."""
+    from cilium_tpu_torch.kernels.records import batch_to_torch, wire_to_torch
     n = mesh.shape["flows"]
     dev = mesh.device_of(0)
     if isinstance(batch, dict):
@@ -526,8 +533,7 @@ def whole_batch(batch, mesh: TorchMesh) -> Dict[str, Any]:
         return batch_to_torch(batch, dev)
     parts = tuple(batch) if isinstance(batch, (tuple, list)) else (batch,)
     _per_shard(parts[0].shape[0], n)
-    wire = tuple(wire_to_torch(p, dev) for p in parts)
-    return unpack_wire(wire if len(wire) > 1 else wire[0])
+    return [wire_to_torch(p, dev) for p in parts]
 
 
 def _per_shard(rows: int, n: int) -> int:
@@ -558,25 +564,26 @@ def make_sharded_classify_fn(mesh: TorchMesh, probe_depth: int = PROBE_DEPTH,
     ``split_batch`` takes. → (out on the mesh's first device with the rows
     in batch order, cts, counters summed over the flow axis).
 
-    On a co-located mesh (``TorchMesh.colocated``) it is ONE
-    ``kernels/classify.classify_step`` over all rows with ``shards`` = the
-    flow axis: the stateless stages run once (with ``fused``, K1 and K3
-    launch once a dispatch), the probe pair once per shard (K2, or the
-    plain probe once over the shard-major table), the CT update once over
-    the shard-major table. Elsewhere each flow shard runs its own step on
-    its own segment of the rows and its own CT shard (with ``fused``, K1,
-    K2 and, on a flow-only mesh, K3 launch once per shard). Both are the
-    reference's steered step bit for bit."""
-    from cilium_tpu_torch.kernels.classify import classify_step
+    On a co-located mesh (``TorchMesh.colocated``) it is ONE call of the
+    scripted ``kernels/classify.classify_step`` over all rows with
+    ``shards`` = the flow axis: the stateless stages run once (with
+    ``fused``, K1 and K3 launch once a dispatch), the probe pair once per
+    shard (K2, or the plain probe once over the shard-major table), the CT
+    update once over the shard-major table. Elsewhere each flow shard runs
+    its own scripted step on its own segment of the rows and its own CT
+    shard (with ``fused``, K1, K2 and, on a flow-only mesh, K3 launch once
+    per shard). Both are the reference's steered step bit for bit."""
+    from cilium_tpu_torch.kernels.classify import classify_step, run_scripted
     if mesh.colocated:
         return _make_colocated_classify(mesh, probe_depth, v4_only,
                                         donate_ct, fused)
 
     def step(views, axes, cts, batches, now, world_index):
-        res = [classify_step(views[f], cts[f], batches[f], now, world_index,
-                             probe_depth=probe_depth, v4_only=v4_only,
-                             rule_axis=axes[f], fused=fused,
-                             inplace=donate_ct)
+        res = [run_scripted(classify_step, views[f], cts[f], batches[f],
+                            int(now), int(world_index),
+                            probe_depth=probe_depth, v4_only=v4_only,
+                            rule_axis=axes[f], fused=fused,
+                            inplace=donate_ct)
                for f in range(len(batches))]
         return tuple(list(col) for col in zip(*res))
 
@@ -609,16 +616,22 @@ def make_unsteered_classify_fn(mesh: TorchMesh,
 def _make_colocated_classify(mesh: TorchMesh, probe_depth: int,
                              v4_only: bool, donate_ct: bool, fused: bool):
     """The steered step of a co-located mesh (see
-    :func:`make_sharded_classify_fn`); ``cts`` is a :class:`CTShards`."""
-    from cilium_tpu_torch.kernels.classify import classify_step
+    :func:`make_sharded_classify_fn`); ``cts`` is a :class:`CTShards`.
+    A wire is unpacked inside the scripted call."""
+    from cilium_tpu_torch.kernels.classify import (classify_step,
+                                                   classify_wire_step,
+                                                   run_scripted)
     dev = mesh.device_of(0)
     n = mesh.shape["flows"]
 
     def call(placed, cts, batch, now, world_index):
-        out, table, counters = classify_step(
-            placed[dev], cts.table, whole_batch(batch, mesh), now,
-            world_index, probe_depth=probe_depth, v4_only=v4_only,
-            fused=fused, inplace=donate_ct, shards=n)
+        whole = _whole_parts(batch, mesh)
+        step = classify_wire_step if isinstance(whole, list) \
+            else classify_step
+        out, table, counters = run_scripted(
+            step, placed[dev], cts.table, whole, int(now), int(world_index),
+            probe_depth=probe_depth, v4_only=v4_only, fused=fused,
+            inplace=donate_ct, shards=n)
         return out, (cts if donate_ct else CTShards(table, n)), counters
 
     return call

@@ -1610,6 +1610,12 @@ class Engine:
                 out["mesh_width"] = (
                     h["configured"], h["live"],
                     (h["configured"] - h["live"]) / h["configured"])
+        import sys as _sys
+        cls_mod = _sys.modules.get("cilium_tpu_torch.kernels.classify")
+        if cls_mod is not None:
+            cs = cls_mod.fn_cache_stats()
+            # LRU: full-with-evictions is a rebuild cost, not a failure
+            out["classify_fn_cache"] = (cs["cap"], cs["size"], 0.0)
         return out
 
     def resource_step(self, now: Optional[float] = None) -> Dict:
@@ -2040,6 +2046,22 @@ class Engine:
                     if d:
                         self.metrics.inc_counter(f"datapath_{k}_total", d)
                         self._pack_stats_seen[f"patch:{k}"] = v
+        # make_classify_fn memo (kernels/classify): size gauge + eviction
+        # counter, folded only when the step's module is loaded — a
+        # fake-datapath engine never imports it
+        import sys as _sys
+        cls_mod = _sys.modules.get("cilium_tpu_torch.kernels.classify")
+        if cls_mod is not None:
+            cs = cls_mod.fn_cache_stats()
+            self.metrics.set_gauge("classify_fn_cache_size", cs["size"])
+            with self._pack_fold_lock:
+                d = cs["evictions"] - self._pack_stats_seen.get(
+                    "fn_cache:evictions", 0)
+                if d:
+                    self.metrics.inc_counter(
+                        "classify_fn_cache_evictions_total", d)
+                    self._pack_stats_seen["fn_cache:evictions"] = \
+                        cs["evictions"]
         # trace-ring drop accounting: the tracer's drop-oldest
         # overwrites + full wraps as real counters (same delta-fold as the
         # pack stats — the tracer's own totals are process-lifetime ints)

@@ -17,9 +17,10 @@ they are dropped:
   Pallas selector, the port's CUDA one, which adds each kernel's launch
   count to the reference's three keys); equal on the fakes (``None``)
   and stated for both on the real datapaths;
-- ``ciliumtpu_classify_fn_cache_*`` metric lines: the JAX classify memo,
-  which the port does not have; and ``ciliumtpu_trace_*``, which a fresh
-  engine exports once the process-global tracer has dropped spans.
+- ``ciliumtpu_classify_fn_cache_*`` metric lines: each package's classify
+  memo, process-global, whose evictions depend on what else ran in the
+  process; and ``ciliumtpu_trace_*``, which a fresh engine exports once
+  the process-global tracer has dropped spans.
 
 Flows are classified at one shared ``now`` taken when the test starts,
 with TCP ACK (an established lifetime), so the engines' CT GC

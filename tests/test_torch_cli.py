@@ -2,8 +2,8 @@
 twenty tests of ``test_cli.py``, each command run through both packages'
 ``main`` on one state dir (saved once by each package's engine: every
 offline command reads both) and the exit codes and outputs held equal.
-Dropped from a compared output: the metric lines of the JAX classify
-memo (``classify_fn_cache``), which the port does not have, those of the
+Dropped from a compared output: the metric lines of each package's
+classify memo (``classify_fn_cache``, process-global), those of the
 process-global tracer's drops (``ciliumtpu_trace_*``, present once other
 tests on the worker made it drop), and the values of the measured-time
 series (``*_seconds_sum``/``_max``).

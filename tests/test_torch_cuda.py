@@ -87,6 +87,30 @@ def test_classify_kernel_path_matches_plain_path(device, config):
     assert all(v == 4 for v in fk.LAUNCHES.values()), fk.LAUNCHES
 
 
+@pytest.mark.parametrize("config", ["cfg5", "mixed"])
+def test_scripted_step_equals_the_eager_step(device, config):
+    """``make_classify_fn``'s scripted step (the kernel wrappers called
+    from it) against ``classify_step`` called eagerly, kernels on, each
+    on its own copy of the CT: every out column, counter and CT array
+    equal, batch after batch, and each kernel launched by both."""
+    from cilium_tpu_torch.kernels.classify import classify_step
+    world = make_world(config, seed=4, device=device, preset="smoke")
+    fn = make_classify_fn(v4_only=world.v4_only, packed=True, device=device)
+    ct_e = {k: v.clone() for k, v in world.ct.items()}
+    fk.reset_launches()
+    for i in range(4):
+        wire = world.pack(world.next_batch())
+        out, ct, cnt = fn(world.tensors, world.ct, wire, 1000 + i,
+                          world.world_index)
+        out_e, ct_e, cnt_e = classify_step(
+            world.tensors, ct_e, unpack_wire(wire_to_torch(wire, device)),
+            1000 + i, world.world_index, v4_only=world.v4_only, inplace=True)
+        for a, b in ((out_e, out), (cnt_e, cnt), (ct_e, ct)):
+            for k in a:
+                assert torch.equal(a[k], b[k]), (i, k)
+    assert all(v == 8 for v in fk.LAUNCHES.values()), fk.LAUNCHES
+
+
 def test_edge_cases_match_plain_versions(device):
     probe, policy, lpm = edge_cases(seed=0)
     for name, case in lpm.items():

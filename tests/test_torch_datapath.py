@@ -239,9 +239,11 @@ def assert_engines_equal(ej, et, msg=""):
     np.testing.assert_array_equal(mj.by_reason_dir, mt.by_reason_dir, msg)
     for k in ("insert_fail", "ct_evicted", "packets_total", "batches_total"):
         assert getattr(mj, k) == getattr(mt, k), (msg, k)
-    cj = {k: v for k, v in mj.counters.items()
-          if not k.startswith("classify_fn_cache")}
-    assert cj == mt.counters, msg
+    # each package's classify memo is process-global: its eviction count
+    # depends on what else ran in this process
+    cj, ct = ({k: v for k, v in m.counters.items()
+               if not k.startswith("classify_fn_cache")} for m in (mj, mt))
+    assert cj == ct, msg
 
 
 def per_side(fn, *args, **kw):

@@ -14,8 +14,9 @@ array.
 - QoS, a clustermesh store and the DNS proxy construct and serve as the
   JAX engine does, ``attach_mesh`` returns a ``ClusterMesh``; the API
   socket, the CT-snapshot archive and the shim feeder serve;
-- ``health()`` and ``render_metrics()`` carry the JAX engine's keys, apart
-  from the ``classify_fn_cache`` lines (the port has no classify-fn memo).
+- ``health()`` and ``render_metrics()`` carry the JAX engine's keys, the
+  ``classify_fn_cache`` lines included (each package's classify-fn
+  memo).
 """
 
 import random
@@ -378,21 +379,23 @@ def test_health_and_metrics_carry_the_reference_keys():
     assert hj["state"] == ht["state"] == C.HEALTH_OK
     names_j = _metric_names(ej.render_metrics())
     names_t = _metric_names(et.render_metrics())
-    # the JAX classify memo and each package's span tracer are
-    # process-global: whether the memo has evicted, or a tracer dropped
-    # spans, depends on what else ran in this process, so each of those
-    # counters' lines is expected exactly when its source has counted
-    from cilium_tpu.kernels.classify import fn_cache_stats
-    memo_only = {"ciliumtpu_classify_fn_cache_size"}
-    if fn_cache_stats()["evictions"] > 0:
-        memo_only.add("ciliumtpu_classify_fn_cache_evictions_total")
+    # each package's classify memo and span tracer are process-global:
+    # whether a memo has evicted, or a tracer dropped spans, depends on
+    # what else ran in this process, so each of those counters' lines is
+    # expected exactly when its source has counted
+    from cilium_tpu.kernels.classify import fn_cache_stats as j_stats
+    from cilium_tpu_torch.kernels.classify import fn_cache_stats as t_stats
+    memo_j, memo_t = (
+        {"ciliumtpu_classify_fn_cache_evictions_total"}
+        if stats()["evictions"] > 0 else set() for stats in (j_stats, t_stats))
     trace_j, trace_t = (
         {f"ciliumtpu_trace_{name}" for key, name in (
             ("spans_dropped_total", "spans_dropped_total"),
             ("ring_wraps", "ring_wraps_total")) if e.tracer.stats()[key] > 0}
         for e in (ej, et))
-    assert names_j - names_t == memo_only | (trace_j - trace_t)
-    assert names_t - names_j == trace_t - trace_j
+    assert {"ciliumtpu_classify_fn_cache_size"} <= names_j & names_t
+    assert names_j - names_t == (memo_j - memo_t) | (trace_j - trace_t)
+    assert names_t - names_j == (memo_t - memo_j) | (trace_t - trace_j)
     for e in (ej, et):
         e.stop()
 

@@ -20,9 +20,8 @@ and serving cases run the JAX package through its jnp reference
 (``fused=False``, ``fused_kernels="off"``), which ``test_fused.py`` itself
 holds equal to interpret mode case by case, because interpret mode there
 would make this file the suite's long pole (each case's docstring says
-which). Not mirrored, JAX-only: ``test_same_static_config_shares_one_
-callable`` (the jit memo: the port compiles nothing per shape) and
-``test_fuse_plan_budget_gates_per_stage`` (``fuse_plan`` is not ported).
+which). Not mirrored, JAX-only: ``test_fuse_plan_budget_gates_per_stage``
+(``fuse_plan`` is not ported).
 ``test_v6_walk_at_100k_prefixes`` and ``TestFusedSoak`` keep ``slow``.
 """
 
@@ -384,6 +383,31 @@ class TestFusedClassifyParity:
                 assert common == sorted(x), (bi, part)
                 assert {k: x[k] for k in common} == \
                     {k: y[k] for k in common}, (bi, part)
+
+
+#: each package's other executor of the classify step: the JAX package's
+#: Pallas interior in interpret mode; the port's plain path (its default
+#: is the kernel wrappers)
+OTHER_EXECUTOR = {"jax": dict(fused=True, fused_interpret=True),
+                  "torch": dict(fused=False)}
+
+
+class TestMakeClassifyFnMemo:
+    def test_same_static_config_shares_one_callable(self):
+        def case(side):
+            mk = P(side).classify.make_classify_fn
+            a = mk(8, False, donate_ct=False)
+            return (a is mk(8, False, donate_ct=False),
+                    a is not mk(8, True, donate_ct=False),
+                    a is not mk(8, False, donate_ct=False, packed=True),
+                    a is not mk(8, False, donate_ct=False,
+                                **OTHER_EXECUTOR[side]),
+                    a is not mk(8, False, donate_ct=False, lb_probe_depth=4))
+        assert case("jax") == case("torch") == (True,) * 5
+        # the port's key holds the device as well
+        mk = P("torch").classify.make_classify_fn
+        assert mk(8, False, donate_ct=False, device="cpu") \
+            is not mk(8, False, donate_ct=False)
 
 
 # --------------------------------------------------------------------------- #

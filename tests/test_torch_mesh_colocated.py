@@ -222,6 +222,10 @@ def test_pre_ct_runs_once_per_dispatch_on_a_colocated_mesh(
 
     monkeypatch.setattr(tcls, "classify_pre_ct", counting)
     monkeypatch.setattr(tex, "classify_pre_ct", counting)
+    # the scripted step calls no Python stage function: count its stages
+    # in the same step run eagerly
+    monkeypatch.setattr(tcls, "run_scripted",
+                        lambda fn, *a, **k: fn(*a, **k))
     m = SP("torch")
     eng = m.jit_pipeline_engine(**geometry)
     slot_of = eng.active.snapshot.ep_slot_of

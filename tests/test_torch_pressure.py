@@ -258,9 +258,9 @@ class TestResourceLedger:
 
 # --------------------------------------------------------------------------- #
 #: resources whose rows read process-global state: the span tracer's ring,
-#: which other tests on the same worker reconfigure, and the JAX package's
-#: classify-function memo (registered once a JAX step has compiled in the
-#: process; the port has no such memo)
+#: which other tests on the same worker reconfigure, and each package's
+#: classify-function memo (registered once the package's step module is
+#: loaded; its size depends on what else ran in the process)
 GLOBAL_ROWS = ("trace_ring", "classify_fn_cache")
 
 

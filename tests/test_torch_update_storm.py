@@ -3,21 +3,16 @@ case with ``test_update_storm.py``: sparse delta patches of the placed
 verdict image behind the ``StalePlacement`` fence, overlay emission, the
 random rule and endpoint storm against the oracle-backed fake, the chunked
 CT GC, CT survival across a restart through the checkpoint, and the storm
-under the parity auditor.
+under the parity auditor, and the memo of classify steps
+(``make_classify_fn``'s LRU, which each engine exports).
 
 Each case runs the reference's scenario on each package: the JAX side on
 ``JITDatapath`` (or its ``FakeDatapath``) as its own tests run it, the port
 on ``TorchDatapath`` with ``device="cpu"`` (or its own ``FakeDatapath``).
 Each asserts the reference's expectations, and the two sides' results are
 held equal, exactly: verdict columns, patch statistics, verdict images,
-sparse payloads, CT arrays, GC counts, restored verdicts, audit counts.
-
-Not mirrored: ``TestClassifyFnCacheLRU``'s two cases
-(``test_lru_cap_and_eviction_counter``, ``test_memo_hit_returns_same_fn``).
-They test the JAX package's memo of jitted classify functions
-(``cilium_tpu/kernels/classify.py:439-455``, ``FN_CACHE_CAP``,
-``fn_cache_stats``); the port compiles nothing per shape, has no such
-cache, and its engine emits no ``classify_fn_cache_*`` gauges.
+sparse payloads, CT arrays, GC counts, restored verdicts, audit counts,
+the memo's sizes and evictions.
 """
 
 import functools
@@ -676,6 +671,70 @@ def flow_pkt(m, flags):
     d16, _ = m.ip.parse_addr("192.168.1.10")
     return m.oracle.PacketRecord(s16, d16, 33333, 80, m.C.PROTO_TCP, flags,
                                  False, 1, m.C.DIR_INGRESS)
+
+
+class TestClassifyFnCacheLRU:
+    """The memo of ``make_classify_fn`` (the JAX package's jitted steps,
+    the port's closures over its scripted step), ``FN_CACHE_CAP`` patched
+    on each package in turn."""
+
+    def test_lru_cap_and_eviction_counter(self, monkeypatch):
+        def case(m):
+            ck = m.classify
+            monkeypatch.setattr(ck, "FN_CACHE_CAP", 4)
+            ck._FN_CACHE.clear()
+            ev0 = ck._FN_EVICTIONS[0]
+            fns = [ck.make_classify_fn(lb_probe_depth=8 + i)
+                   for i in range(6)]
+            st = ck.fn_cache_stats()
+            assert st["size"] <= 4
+            assert ck._FN_EVICTIONS[0] == ev0 + 2
+            # the most-recent entries survive; hits touch LRU order
+            assert ck.make_classify_fn(lb_probe_depth=13) is fns[5]
+            # an evicted key rebuilds without growing past the cap
+            ck.make_classify_fn(lb_probe_depth=8)
+            end = ck.fn_cache_stats()
+            assert end["size"] <= 4
+            return (st["size"], st["cap"], ck._FN_EVICTIONS[0] - ev0,
+                    end["size"])
+        assert both(case) == (4, 4, 3, 4)
+
+    def test_memo_hit_returns_same_fn(self):
+        def case(m):
+            a = m.classify.make_classify_fn(probe_depth=8, packed=True)
+            b = m.classify.make_classify_fn(probe_depth=8, packed=True)
+            assert a is b
+            return a is b
+        both(case)
+
+    def test_engine_exports_the_memo(self, monkeypatch):
+        """The ``classify_fn_cache`` resource row (capacity = the cap,
+        occupancy = the size), the ``classify_fn_cache_size`` gauge and
+        the ``classify_fn_cache_evictions_total`` counter, folded from the
+        memo's own count."""
+        def case(m):
+            ck = m.classify
+            eng = jit_engine(m)
+            try:
+                eng.render_metrics()        # folds earlier evictions
+                ev0 = eng.metrics.counters.get(
+                    "classify_fn_cache_evictions_total", 0)
+                monkeypatch.setattr(ck, "FN_CACHE_CAP", 2)
+                ck._FN_CACHE.clear()
+                for i in range(5):
+                    ck.make_classify_fn(lb_probe_depth=20 + i)
+                text = eng.render_metrics()
+                row = eng.resource_step(now=1.0)["resources"][
+                    "classify_fn_cache"]
+                return (eng.metrics.counters[
+                            "classify_fn_cache_evictions_total"] - ev0,
+                        eng.metrics.gauges["classify_fn_cache_size"],
+                        row["capacity"], row["occupancy"],
+                        "classify_fn_cache_size" in text,
+                        "classify_fn_cache_evictions_total" in text)
+            finally:
+                eng.stop()
+        assert both(case) == (3, 2, 2, 2, True, True)
 
 
 class TestCTRestart:
