@@ -1,7 +1,8 @@
-"""Sampled span tracing for the serving path (the host-side half of
-tracing/profiling; ``torch.profiler`` covers the device half through
-``Engine.profile_classify``, ``metrics.span`` keeps cheap aggregate
-timers).
+"""Sampled span tracing for the serving path: one record per occurrence
+of a stage (the pipeline's admission, dispatch and finalize, the
+datapath's pack, transfer and the wait on the device, the engine's
+finalize folds, GC ticks and regenerations), kept in a ring in memory.
+``metrics.span`` keeps the cheap aggregate timers beside it.
 
 Why another mechanism: SpanStat aggregates (count/total/max) cannot answer
 "which *stage* made cfg4's p99 3.8x its p50" — that needs per-occurrence
@@ -12,13 +13,30 @@ the hot path. So:
   ``itertools.count`` (atomic under the GIL) and returns a trace id every
   Nth event (N = round(1/sample_rate)); every other event pays one
   ``next()`` + a modulo. Deterministic → tests can assert exact sample
-  counts.
-- **Fixed-capacity ring.** Spans land in a preallocated ring (drop-oldest);
-  recording takes a lock only on the *sampled* path.
+  counts. At rate 0 nothing is drawn and ``span(None, ...)`` returns one
+  shared no-op context.
+- **Fixed-capacity ring.** Spans land in a preallocated ring (drop-oldest,
+  every overwritten span counted in ``spans_dropped_total``); recording
+  takes a lock only on the *sampled* path.
 - **Trace context is a thread-local.** The pipeline worker (or classify
   caller) enters ``context(trace_id)``; downstream layers (the datapath's
-  pack/transfer/compute split) attach spans to whatever trace is current
-  without any signature changes across the DatapathBackend boundary.
+  pack/transfer/compute split, the engine's folds) attach spans to
+  whatever trace is current (:func:`active`) without any signature changes
+  across the DatapathBackend boundary.
+- **Span ids and parents.** A span opened with ``span()`` gets an id, and
+  its parent is the innermost span still open on the same thread (the same
+  thread-local), so a stage's self time is its duration less its
+  children's. It carries its thread's ident. A span written after the
+  fact with ``record()`` (``pipeline.admission``: one submission's queue
+  wait) has an id but no parent and no thread.
+
+Read sides: ``spans()``, ``summary()`` and ``stats()`` (the REST and CLI
+surfaces, stamps on the monotonic clock) and ``export()``: every span in
+the ring, oldest first, with its ids, its thread and its start and end in
+integer nanoseconds on the host's epoch clock, the clock ``time.time_ns()``
+reads and ``torch.profiler`` stamps device events with, so a span can be
+laid beside the device's timeline. The monotonic stamps are moved onto it
+by the offset between the two clocks read when the tracer is armed.
 
 One process-wide instance (``TRACER``) mirrors the ``FAULTS`` singleton so
 instrumentation points need no plumbing; independent ``Tracer`` objects
@@ -34,30 +52,20 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-#: span tuple layout: (trace_id, name, t0_monotonic, duration_s, attrs|None)
-_Span = Tuple[int, str, float, float, Optional[dict]]
+#: span tuple layout: (trace_id, name, t0_monotonic, duration_s, attrs|None,
+#: span_id, parent span_id|None, thread ident|None)
+_Span = Tuple[int, str, float, float, Optional[dict], int, Optional[int],
+              Optional[int]]
 
 DEFAULT_CAPACITY = 4096
 
-#: Per-kernel attribution span names for the classify interior. The
-#: serving path's ``datapath.compute`` span carries a ``fused`` attr naming
-#: the executor (the CUDA kernels or the plain torch versions); a
-#: benchmark that times each stage on its own records it under these span
-#: names. One name per fused kernel plus the whole interior.
-KERNEL_SPAN_LPM = "datapath.kernel.lpm"
-KERNEL_SPAN_CT_PROBE = "datapath.kernel.ct_probe"
-KERNEL_SPAN_POLICY_L7 = "datapath.kernel.policy_l7"
-KERNEL_SPAN_FULL = "datapath.kernel.full_step"
-KERNEL_SPANS = (KERNEL_SPAN_LPM, KERNEL_SPAN_CT_PROBE,
-                KERNEL_SPAN_POLICY_L7, KERNEL_SPAN_FULL)
-
-#: Live-state fast-path span names. PATCH_APPLY_SPAN
-#: wraps the device-side scatter-apply of a sparse policy delta
+#: Live-state fast-path span names. PATCH_APPLY_SPAN wraps the
+#: device-side scatter-apply of a sparse policy delta
 #: (TorchDatapath.place_patch — the "device-apply" half of a live rule
 #: update; the host compile half rides the existing engine.regen.patch
-#: span). CT_GC_SPAN wraps one overlapped chunk-sweep enqueue
-#: (TorchDatapath.sweep_step). bench.py --update-storm reads both out of the
-#: tracer summary for the artifact's host/device latency split.
+#: span). CT_GC_SPAN wraps one GC tick's chunk-sweep enqueue
+#: (TorchDatapath.sweep_step); the device runs the sweep later, in stream
+#: order.
 PATCH_APPLY_SPAN = "datapath.patch.apply"
 CT_GC_SPAN = "datapath.ct.gc"
 
@@ -78,7 +86,8 @@ _NULL_SPAN = _NullSpan()
 
 
 class _SpanCtx:
-    __slots__ = ("_tracer", "_tid", "_name", "_attrs", "_t0")
+    __slots__ = ("_tracer", "_tid", "_name", "_attrs", "_t0", "_sid",
+                 "_outer")
 
     def __init__(self, tracer: "Tracer", tid: int, name: str, attrs):
         self._tracer = tracer
@@ -87,19 +96,30 @@ class _SpanCtx:
         self._attrs = attrs
 
     def __enter__(self):
+        self._sid = next(self._tracer._span_ids)
+        self._outer = getattr(_ACTIVE, "open", None)
+        _ACTIVE.open = (self._tracer, self._sid)
         self._t0 = time.monotonic()
         return self
 
     def __exit__(self, *exc):
-        self._tracer.record(self._tid, self._name, self._t0,
-                            time.monotonic() - self._t0, self._attrs)
+        dur = time.monotonic() - self._t0
+        outer = self._outer
+        _ACTIVE.open = outer
+        parent = outer[1] if outer is not None \
+            and outer[0] is self._tracer else None
+        self._tracer._put((self._tid, self._name, self._t0, dur,
+                           self._attrs, self._sid, parent,
+                           threading.get_ident()))
         return False
 
 
-#: thread-local trace context: (tracer, trace_id) of the innermost
-#: ``Tracer.context`` block. Module-level (not per-Tracer) so downstream
-#: layers attach spans to whichever tracer set the context — a Pipeline
-#: constructed with an injected test tracer still gets its datapath spans.
+#: thread-local trace context: ``entry`` is (tracer, trace_id) of the
+#: innermost ``Tracer.context`` block, ``open`` (tracer, span_id) of the
+#: innermost span still open on the thread (the next span's parent).
+#: Module-level (not per-Tracer) so downstream layers attach spans to
+#: whichever tracer set the context — a Pipeline constructed with an
+#: injected test tracer still gets its datapath spans.
 _ACTIVE = threading.local()
 
 
@@ -135,6 +155,8 @@ class Tracer:
         self._lock = threading.Lock()
         self._events = itertools.count()
         self._trace_ids = itertools.count(1)
+        self._span_ids = itertools.count(1)
+        self._epoch_offset_ns = 0   # epoch ns − monotonic ns, when armed
         self._ring: List[Optional[_Span]] = []
         self._widx = 0
         self._filled = 0           # occupied ring slots (O(1) stats read)
@@ -161,6 +183,10 @@ class Tracer:
                     self._every = 1
                 else:
                     self._every = max(1, round(1.0 / sample_rate))
+                if self._every:
+                    # export()'s clock: spans keep their monotonic stamps
+                    self._epoch_offset_ns = time.time_ns() \
+                        - time.monotonic_ns()
             if capacity is not None:
                 if capacity < 1:
                     raise ValueError("trace capacity must be >= 1")
@@ -190,6 +216,7 @@ class Tracer:
             self.ring_wraps = 0
             self._events = itertools.count()
             self._trace_ids = itertools.count(1)
+            self._span_ids = itertools.count(1)
 
     # -- hot path ------------------------------------------------------------
     def maybe_sample(self) -> Optional[int]:
@@ -229,8 +256,14 @@ class Tracer:
 
     def record(self, trace_id: Optional[int], name: str, t0: float,
                duration_s: float, attrs: Optional[dict] = None) -> None:
+        """Write a span after the fact (``t0`` on ``time.monotonic()``):
+        it gets an id, but no parent and no thread."""
         if trace_id is None:
             return
+        self._put((trace_id, name, t0, duration_s, attrs,
+                   next(self._span_ids), None, None))
+
+    def _put(self, span: _Span) -> None:
         with self._lock:
             ring = self._ring
             overwrote = ring[self._widx] is not None
@@ -241,7 +274,7 @@ class Tracer:
                 # summary/export — count it so /v1/trace can say how much
                 # of the story the ring no longer holds
                 self.spans_dropped_total += 1
-            ring[self._widx] = (trace_id, name, t0, duration_s, attrs)
+            ring[self._widx] = span
             self._widx = (self._widx + 1) % len(ring)
             # a wrap is a completed cycle of LOSS, so the initial free
             # fill doesn't count — keeps drops == wraps * capacity (+
@@ -278,7 +311,7 @@ class Tracer:
     def spans(self, limit: int = 100, name: Optional[str] = None,
               trace_id: Optional[int] = None) -> List[Dict]:
         out = []
-        for tid, nm, t0, dur, attrs in self._snapshot():
+        for tid, nm, t0, dur, attrs, *_ids in self._snapshot():
             if name is not None and nm != name:
                 continue
             if trace_id is not None and tid != trace_id:
@@ -294,7 +327,7 @@ class Tracer:
         """Per-stage aggregate over the spans currently in the ring:
         count + p50/p99/max/total (ms) — the bench/CLI surface."""
         by_name: Dict[str, List[float]] = {}
-        for _tid, nm, _t0, dur, _attrs in self._snapshot():
+        for _tid, nm, _t0, dur, *_rest in self._snapshot():
             by_name.setdefault(nm, []).append(dur)
         out = {}
         for nm in sorted(by_name):
@@ -306,6 +339,22 @@ class Tracer:
                 "max_ms": round(float(v.max()), 4),
                 "total_ms": round(float(v.sum()), 4),
             }
+        return out
+
+    def export(self) -> List[Dict]:
+        """Every span in the ring, oldest first: ``trace_id``, ``span_id``,
+        ``parent_id`` (None for a root or a recorded span), ``name``,
+        ``start_ns`` and ``end_ns`` (integer nanoseconds on the host's
+        epoch clock, ``time.time_ns()``'s), ``thread`` (the ident of the
+        thread that opened it; None for a recorded span) and ``attrs``."""
+        off = self._epoch_offset_ns
+        out = []
+        for tid, nm, t0, dur, attrs, sid, parent, thread in self._snapshot():
+            start = round(t0 * 1e9) + off
+            out.append({"trace_id": tid, "span_id": sid, "parent_id": parent,
+                        "name": nm, "start_ns": start,
+                        "end_ns": start + round(dur * 1e9),
+                        "thread": thread, "attrs": attrs})
         return out
 
     def stats(self) -> Dict:

@@ -1071,8 +1071,11 @@ class TorchDatapath(DatapathBackend):
         its pooled wire buffer, and apply ``post`` (the un-steer or the
         padding's truncation) to the outputs."""
         def finalize():
-            # the ``fused`` tag attributes compute time to the executor
-            # that produced it (the CUDA kernels vs the plain versions)
+            # datapath.compute: the host blocked on this dispatch's output
+            # event. On a card that is the wait on the device (the step
+            # was enqueued in classify_async), not its compute time; on
+            # the CPU the step already ran there. The ``fused`` tag names
+            # the executor (the CUDA kernels vs the plain versions)
             try:
                 with tracer.span(trace_id, "datapath.compute",
                                  fused=int(self._fused)):

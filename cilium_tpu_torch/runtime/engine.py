@@ -40,6 +40,7 @@ from cilium_tpu_torch.observe.blackbox import FlightRecorder
 from cilium_tpu_torch.observe.flowmetrics import FlowMetrics
 from cilium_tpu_torch.observe.pressure import LADDER_EXCLUDE, ResourceLedger
 from cilium_tpu_torch.observe.trace import TRACER
+from cilium_tpu_torch.observe.trace import active as active_trace
 from cilium_tpu_torch.policy.repository import PolicyContext, Repository
 from cilium_tpu_torch.policy.selectorcache import SelectorCache
 from cilium_tpu_torch.runtime.config import DaemonConfig
@@ -497,32 +498,47 @@ class Engine:
         if now is None:
             now = int(time.time())
         trace_id = TRACER.maybe_sample()
+        # the folds are children of engine.classify; the classify timer
+        # keeps to the datapath's call
         with TRACER.context(trace_id), \
-                TRACER.span(trace_id, "engine.classify"), \
-                self.metrics.span("classify").timer():
-            for attempt in range(self._STALE_RETRIES):
-                # a retry runs under the engine lock: no regeneration can
-                # patch the handle it captures before it is enqueued
-                with self._lock if attempt else contextlib.nullcontext():
-                    active = self.active
-                    try:
-                        out, counters = self.datapath.classify(
-                            active.tensors, active.snapshot, batch, now)
-                        break
-                    except StalePlacement:
-                        # a live patch landed between capturing the handle
-                        # and enqueueing: retry, holding the lock, against
-                        # the post-patch snapshot (same as having
-                        # dispatched a moment later)
-                        if attempt == self._STALE_RETRIES - 1:
-                            raise
-        n_valid = int(np.asarray(batch["valid"]).sum())
-        self.metrics.add_batch(counters, n_valid)
-        self.flowlog.append_batch(batch, out, now,
-                                  active.snapshot.ep_ids)
-        self.flowmetrics.add_batch(batch, out, now)
-        self._observe_batch(batch, out, active.snapshot, now, n_valid)
+                TRACER.span(trace_id, "engine.classify"):
+            with self.metrics.span("classify").timer():
+                for attempt in range(self._STALE_RETRIES):
+                    # a retry runs under the engine lock: no regeneration
+                    # can patch the handle it captures before it is
+                    # enqueued
+                    with self._lock if attempt \
+                            else contextlib.nullcontext():
+                        active = self.active
+                        try:
+                            out, counters = self.datapath.classify(
+                                active.tensors, active.snapshot, batch, now)
+                            break
+                        except StalePlacement:
+                            # a live patch landed between capturing the
+                            # handle and enqueueing: retry, holding the
+                            # lock, against the post-patch snapshot (same
+                            # as having dispatched a moment later)
+                            if attempt == self._STALE_RETRIES - 1:
+                                raise
+            self._fold_batch(batch, out, counters, active.snapshot, now)
         return out
+
+    def _fold_batch(self, batch, out, counters, snap, now: int,
+                    steered: bool = False) -> None:
+        """The finalize folds of one batch whose verdicts are on the host:
+        the counters, the flow log, the flow metrics, then the provenance
+        hooks. Each fold is an ``engine.fold.*`` span of the thread's
+        trace (a no-op unsampled)."""
+        tracer, tid = active_trace()
+        n_valid = int(np.asarray(batch["valid"]).sum())
+        with tracer.span(tid, "engine.fold.metrics"):
+            self.metrics.add_batch(counters, n_valid)
+        with tracer.span(tid, "engine.fold.flowlog"):
+            self.flowlog.append_batch(batch, out, now, snap.ep_ids)
+        with tracer.span(tid, "engine.fold.flowmetrics"):
+            self.flowmetrics.add_batch(batch, out, now)
+        self._observe_batch(batch, out, snap, now, n_valid, steered=steered)
 
     # -- verdict provenance (observe/audit.py + observe/blackbox.py) ------------
     def _observe_batch(self, batch, out, snap, now: int, n_valid: int,
@@ -531,9 +547,14 @@ class Engine:
         summary (always on) + shadow-audit counter-sampled capture. Both
         are internally never-raise; the serving path cannot be taken down
         by its own observers."""
-        self.blackbox.record_verdicts(out, n_valid, now)
-        self.auditor.maybe_capture(batch, out, snap, now, steered=steered)
-        self._fold_rule_hits(out, snap)
+        tracer, tid = active_trace()
+        with tracer.span(tid, "engine.fold.blackbox"):
+            self.blackbox.record_verdicts(out, n_valid, now)
+        with tracer.span(tid, "engine.fold.audit_capture"):
+            self.auditor.maybe_capture(batch, out, snap, now,
+                                       steered=steered)
+        with tracer.span(tid, "engine.fold.rule_hits"):
+            self._fold_rule_hits(out, snap)
 
     # -- per-rule hit/drop counters ----------------------------------
     def _fold_rule_hits(self, out, snap) -> None:
@@ -887,21 +908,18 @@ class Engine:
                 # surface (no metrics, flow log, observers, or grace-
                 # window learning)
                 return out
-            n_valid = int(np.asarray(batch["valid"]).sum())
-            self.metrics.add_batch(counters, n_valid)
-            self.flowlog.append_batch(batch, out, now,
-                                      active.snapshot.ep_ids)
-            self.flowmetrics.add_batch(batch, out, now)
             # the finalize capture hook: batch/out are still the live
             # (un-recycled) staging views here — the audit copy happens
             # before the scheduler recycles the buffer
-            self._observe_batch(batch, out, active.snapshot, now, n_valid,
-                                steered=self._pipeline_sharded)
+            self._fold_batch(batch, out, counters, active.snapshot, now,
+                             steered=self._pipeline_sharded)
             # CT-salvage grace window: strictly AFTER the
             # audit capture — the auditor judges the datapath's raw
             # verdict (oracle parity must stay exact), while the APPLIED
             # verdict rides the bounded established-fingerprint grace
-            return self._ct_salvage_apply(batch, out)
+            tracer, tid = active_trace()
+            with tracer.span(tid, "engine.fold.salvage"):
+                return self._ct_salvage_apply(batch, out)
         return finalize
 
     # -- async shim ingestion (shim/feeder.py) ----------------------------------

@@ -781,10 +781,20 @@ class TestScrapeRaces:
             return allows, st["mismatched_rows"]
 
 
+#: the spans the port's synchronous classify adds to the reference's: its
+#: finalize folds (all but the CT-salvage note, which only the pipelined
+#: finalize applies)
+SYNC_FOLD_SPANS = 6
+
+
 class TestTraceRingWraparound:
     def test_trace_ring_wraps_with_audit_capture_armed(self):
-        @both
-        def _(m):
+        """Held to the reference plus exactly the fold spans the port
+        adds: its drops are the reference's plus ``SYNC_FOLD_SPANS`` a
+        classified batch, its ring wraps follow from its drops as the
+        reference's do, and the names left in its ring, less
+        ``engine.fold.*``, are among the reference's."""
+        def case(m):
             TRACER = m.trace.TRACER
             TRACER.configure(sample_rate=1.0, capacity=16)
             TRACER.reset()
@@ -805,10 +815,27 @@ class TestTraceRingWraparound:
                 assert sp["trace_id"] > 0 and sp["duration_ms"] >= 0
             bundle = eng.debug_bundle()
             assert len(bundle["spans"]) <= 16
-            obs = (audit_obs(eng), timeless(tr), sorted(
-                {sp["name"] for sp in spans}), len(bundle["spans"]))
+            # drop-oldest: every recorded span past the first ring-full
+            # is a drop, and each ring-full after the first a wrap
+            cap = tr["capacity"]
+            assert tr["ring_wraps"] \
+                == (tr["spans_dropped_total"] + cap) // cap - 1
+            obs = (audit_obs(eng), timeless(tr), len(bundle["spans"]))
             eng.stop()
-            return obs
+            return obs, {sp["name"] for sp in spans}
+
+        got = {s: case(host(s)) for s in SIDES}
+        (ref, ref_names), (port, port_names) = got["jax"], got["torch"]
+        added = 40 * SYNC_FOLD_SPANS
+        assert port[1]["spans_dropped_total"] \
+            == ref[1]["spans_dropped_total"] + added
+        assert port[1]["ring_wraps"] > ref[1]["ring_wraps"]
+        keep = ("spans_dropped_total", "ring_wraps")
+        assert {k: v for k, v in port[1].items() if k not in keep} \
+            == {k: v for k, v in ref[1].items() if k not in keep}
+        assert port[0] == ref[0] and port[2] == ref[2]
+        assert {n for n in port_names
+                if not n.startswith("engine.fold.")} <= ref_names
 
 
 # --------------------------------------------------------------------------- #
