@@ -291,6 +291,9 @@ KERNELS = {
     "policy_verdict_fused": ("cilium_tpu_torch/csrc/policy_verdict.cu",
                              "cilium_tpu/kernels/fused.py:219",
                              "policy_verdict_kernel"),
+    # no TPU kernel: the reference hashes these fingerprints on the host
+    "flow_fingerprint_fused": ("cilium_tpu_torch/csrc/flow_fingerprint.cu",
+                               None, "flow_fingerprint_kernel"),
 }
 
 
@@ -681,11 +684,40 @@ def hold_lpm(w, seed, report, card):
                     f"trie_nodes={w.tensors['lpm_v4'].shape[0]}")
 
 
+def fingerprint_bytes(n):
+    """The fingerprint kernel's bytes for ``n`` rows: src and dst (16 each),
+    sport, dport, proto and direction (4 each) read once, the fingerprint
+    (4) written once."""
+    return n * (2 * 16 + 4 * 4 + 4)
+
+
+def hold_fingerprint(w, seed, report, card):
+    """The flow-fingerprint kernel held against its plain version at
+    ``w``'s width (1 row in 8 at a random address), and both against
+    ``shim.feeder.flow_hashes`` of the same rows on the host. → the
+    phase line."""
+    import numpy as np
+    from cilium_tpu_torch.kernels import fused as fk
+    from cilium_tpu_torch.shim.feeder import flow_hashes
+    b = kernel_inputs(w, seed)
+    cols = ("src", "dst", "sport", "dport", "proto", "direction")
+    args = tuple(b[k] for k in cols)
+    (fp,), line = hold(
+        "flow_fingerprint_fused", w, args,
+        lambda *a: (fk.flow_fingerprint_fused(*a),),
+        lambda *a: (fk.flow_fingerprint_plain(*a),),
+        fingerprint_bytes(args[0].shape[0]), report, card)
+    want = flow_hashes({k: b[k].cpu().numpy() for k in cols})
+    check(np.array_equal(fp.cpu().numpy().view(np.uint32), want),
+          f"fingerprint {w.name}: != flow_hashes of the host rows")
+    return f"{line} = flow_hashes"
+
+
 def phase_kernels(cfg5, mixed, cfg3, seed, report, card):
     """K1, K2 and K3 held against their plain versions at the cfg5 (the
-    main path's) and mixed widths, and K1 at cfg3's; their device times
-    put off until phase profile (which keeps their inputs). → phase
-    lines."""
+    main path's) and mixed widths, K1 at cfg3's, and the flow-fingerprint
+    kernel at cfg5's and cfg3's; their device times put off until phase
+    profile (which keeps their inputs). → phase lines."""
     import torch
     from cilium_tpu_torch.kernels import fused as fk
     from cilium_tpu_torch.utils import constants as C
@@ -729,6 +761,7 @@ def phase_kernels(cfg5, mixed, cfg3, seed, report, card):
         lines.append(f"{line} reasons={reasons} "
                      f"redirect={int(redirect.sum())}")
     lines.append(hold_lpm(cfg3, seed, report, card)[2])
+    lines += [hold_fingerprint(w, seed, report, card) for w in (cfg5, cfg3)]
     return lines + [edge_line(seed)]
 
 
@@ -4065,16 +4098,22 @@ VERDICT_COLS = ("allow", "reason", "redirect", "remote_identity",
                 "matched_rule", "lpm_prefix")
 
 
-def mesh_launch_check(launches, dispatched, flow_shards, colocated, what):
+def mesh_launch_check(launches, dispatched, flow_shards, colocated,
+                      device_rss, what):
     """K2 launches once per flow shard a dispatch. The host-steered step
     of a flow-only mesh whose shards share the card (``colocated``) runs
-    the stateless stages once over all rows: K1 and K3 once a dispatch.
-    Elsewhere K1 launches once per flow shard and K3 never (the policy
-    stage runs the split plain core)."""
+    the stateless stages once over all rows: K1, K3 and the fingerprint
+    kernel once a dispatch. Elsewhere K1 launches once per flow shard and
+    K3 never (the policy stage runs the split plain core); the fingerprint
+    kernel runs in each flow shard's classify step, which the device-RSS
+    exchange step (``device_rss``) does not call."""
     want = {"lpm_lookup_fused":
             dispatched if colocated else flow_shards * dispatched,
             "ct_probe_pair_fused": flow_shards * dispatched,
-            "policy_verdict_fused": dispatched if colocated else 0}
+            "policy_verdict_fused": dispatched if colocated else 0,
+            "flow_fingerprint_fused":
+            dispatched if colocated
+            else 0 if device_rss else flow_shards * dispatched}
     check(dispatched > 0 and launches == want,
           f"mesh {what}: launches {launches}, want {want} for "
           f"{dispatched} dispatches")
@@ -4259,7 +4298,7 @@ def phase_mesh(seed, card, report):
         launches[key] = dict(fk.LAUNCHES)
         dispatched = log.steps()
         mesh_launch_check(launches[key], dispatched, dp.n_flow_shards,
-                          key == "a", what)
+                          key == "a", cfg.rss_mode == "device", what)
         lines += serve
         lines.append(f"mesh {what}: host ms per dispatch inside "
                      f"classify_async p50 "
@@ -4295,7 +4334,8 @@ def phase_mesh(seed, card, report):
                 elif kind == "step":
                     k2, steps = k2 + width, steps + 1
             want = {"lpm_lookup_fused": steps, "ct_probe_pair_fused": k2,
-                    "policy_verdict_fused": steps}
+                    "policy_verdict_fused": steps,
+                    "flow_fingerprint_fused": steps}
             check(launches["d"] == want,
                   f"mesh d: launches {launches['d']}, want {want} for "
                   f"{steps} dispatches")

@@ -15,9 +15,11 @@ from typing import Dict
 import numpy as np
 import torch
 
-#: out columns and counters that are uint32 in the reference
+#: out columns and counters that are uint32 in the reference (and the
+#: port's own ``est_fp``, which is the reference's flow hashes)
 U32_OUT = frozenset({"remote_identity", "nat_dst", "rnat_src",
-                     "by_reason_dir", "insert_fail", "ct_evicted"})
+                     "by_reason_dir", "insert_fail", "ct_evicted",
+                     "est_fp"})
 
 
 def port_dtype(a: np.ndarray) -> np.ndarray:

@@ -9,7 +9,7 @@
 // A key's slot is the s = (base + i) & (cap - 1) with the smallest
 // i < probe_depth whose expiry is later than now (unsigned compare) and
 // whose 10 key words all match, else -1; base is the key's murmur3 +
-// fmix32 hash (the same arithmetic as kernels/hashing.py).
+// fmix32 hash (ct_hash.cuh: the arithmetic of kernels/hashing.py).
 //
 // What bounds it on Hopper, and what the design does about it:
 // - Scattered loads from a table far larger than L2 (a 2^21-slot table is
@@ -42,6 +42,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "ct_hash.cuh"
 #include "l2_hint.cuh"
 
 namespace {
@@ -51,32 +52,8 @@ namespace {
 constexpr int kGroup = 4;
 static_assert(32 % kGroup == 0, "a group is a power of two dividing 32");
 
-constexpr int kPairs = 5;            // a key is 10 words, 5 8-byte pairs
+constexpr int kPairs = cthash::kKeyPairs;   // a key is 5 8-byte pairs
 constexpr int kMine = (kPairs + kGroup - 1) / kGroup;   // pairs per lane
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ uint32_t hash_words10(const uint64_t (&k)[kPairs]) {
-  uint32_t h = 0x9747B28Cu;
-#pragma unroll
-  for (int i = 0; i < 2 * kPairs; ++i) {
-    uint32_t w = static_cast<uint32_t>(k[i / 2] >> (32 * (i % 2)));
-    w *= 0xCC9E2D51u;
-    w = rotl32(w, 15);
-    w *= 0x1B873593u;
-    h ^= w;
-    h = rotl32(h, 13);
-    h = h * 5u + 0xE6546B64u;
-  }
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
 
 __global__ void ct_probe_pair_kernel(const uint32_t* __restrict__ tab_keys,
                                      const uint32_t* __restrict__ expiry,
@@ -113,7 +90,7 @@ __global__ void ct_probe_pair_kernel(const uint32_t* __restrict__ tab_keys,
     key[p] = __shfl_sync(gmask, mine[p / kGroup], p % kGroup, kGroup);
   }
   const uint64_t mask = (uint64_t)cap - 1;
-  const uint64_t base = hash_words10(key) & mask;
+  const uint64_t base = cthash::hash_words10(key) & mask;
   const uint64_t keep = l2hint::evict_last();
   const uint64_t once = l2hint::evict_first();
 

@@ -45,6 +45,8 @@ KERNELS = {
                [_P] * 10 + [_LL, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _LL,
                             _LL, _LL, _P, _P, _P, _P, _P, _LL, _LL]
                + [_P] * 6),
+    "flow_fp": ("flow_fingerprint.cu", "flow_fingerprint_launch",
+                [_P] * 6 + [_LL, _P, _P]),
 }
 
 _LOCK = threading.Lock()

@@ -276,7 +276,11 @@ def classify_step(tensors: Tensors, ct: Tensors, batch: Tensors, now: int,
                   ) -> Tuple[Tensors, Tensors, Tensors]:
     """→ (out, new_ct, counters), with the reference's out columns and
     counters (u32 ones as int32 bit patterns: ``remote_identity``,
-    ``nat_dst``, ``rnat_src`` and every counter). With ``rule_axis`` (a
+    ``nat_dst``, ``rnat_src`` and every counter), and one column of the
+    port's own: ``est_fp``, each row's flow fingerprint
+    (``shim.feeder.flow_hashes`` of its untranslated tuple, as int32 bit
+    patterns), which the engine's finalize takes out of ``out`` for its
+    CT-salvage note. With ``rule_axis`` (a
     rule-sharded mesh) the policy stage runs the split plain core, as the
     reference does where its rules-axis psum must stay outside the
     kernel; K1 and K2 still run with ``fused``.
@@ -294,6 +298,14 @@ def classify_step(tensors: Tensors, ct: Tensors, batch: Tensors, now: int,
     (``conntrack.ct_home_pair``) for both probes and the insert; K2 hashes
     its keys itself, and the insert then hashes the forward keys."""
     fused_policy = fused and rule_axis is None
+    # the CT-salvage note's flow fingerprints, of the tuple as it arrived
+    # (before the LB's DNAT), which the engine's finalize stamps
+    fp_cols = (batch["src"], batch["dst"], batch["sport"], batch["dport"],
+               batch["proto"], batch["direction"])
+    if fused:
+        est_fp = fk.flow_fingerprint_fused(*fp_cols)
+    else:
+        est_fp = fk.flow_fingerprint_plain(*fp_cols)
     batch, pre = classify_pre_ct(tensors, batch, world_index, v4_only,
                                  rule_axis, lb_probe_depth, fused,
                                  not fused_policy)
@@ -370,6 +382,7 @@ def classify_step(tensors: Tensors, ct: Tensors, batch: Tensors, now: int,
         "rnat": rnat,
         "rnat_src": rnat_src,
         "rnat_sport": rnat_sport,
+        "est_fp": est_fp,
     }
     return out, new_ct, counters
 

@@ -12,7 +12,10 @@ dead node is not inert (the full-depth walk), every warp mixing families,
 K2: probe runs that wrap from slot ``cap - 1`` to slot 0, expiries at the
 clock's edges above 2^31, two live copies of a key in one run, a dead copy
 before a live one, a run full of live near misses, ``probe_depth`` 1 and 8,
-and key words at or above 2^31. K3: an L7 prefix length on each side of
+and key words at or above 2^31. The flow-fingerprint kernel
+(``fingerprint_rows``): v4-mapped and v6 words, both directions, invalid
+rows holding any int32 in their port, protocol and direction columns,
+any row count. K3: an L7 prefix length on each side of
 every 16-byte boundary (and below 0 and past 64), method ANY against an
 exact method, set ids past the last set, REDIRECT rows with and without
 tokens, an invalid first rule before a valid second one, and row inputs
@@ -576,3 +579,23 @@ def policy_args(case: PolicyCase, device):
     """→ ``policy_verdict_*``'s arguments (tensors, then the ten rows)."""
     return (convert.snapshot_tensors_to_torch(case.tensors, device),
             *(torch.tensor(r, device=device) for r in case.rows))
+
+
+def fingerprint_rows(n: int, seed: int) -> Dict[str, np.ndarray]:
+    """``n`` host rows for the flow-fingerprint kernel: a third v4-mapped,
+    the rest random v6 words; both directions; one row in four invalid and
+    holding any int32 in its port, protocol and direction columns."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, (2, n, 4), dtype=np.uint64) \
+        .astype(np.uint32)
+    words[:, np.arange(n) % 3 == 0, :3] = [0, 0, 0xFFFF]
+    b = {"src": words[0], "dst": words[1],
+         "sport": rng.integers(0, 1 << 16, n).astype(np.int32),
+         "dport": rng.integers(0, 1 << 16, n).astype(np.int32),
+         "proto": rng.choice([1, 6, 17, 58], n).astype(np.int32),
+         "direction": (np.arange(n) % 2).astype(np.int32),
+         "valid": np.arange(n) % 4 != 3}
+    junk = ~b["valid"]
+    for k in ("sport", "dport", "proto", "direction"):
+        b[k][junk] = rng.integers(-(1 << 31), 1 << 31, int(junk.sum()))
+    return b

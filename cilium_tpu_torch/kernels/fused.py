@@ -10,6 +10,9 @@
   per table of a co-located mesh's shard-major CT).
 - ``policy_verdict_fused`` (K3, ``csrc/policy_verdict.cu``): policy ladder,
   L7 token match and verdict composition in one launch.
+- ``flow_fingerprint_fused`` (``csrc/flow_fingerprint.cu``): each row's
+  direction-normalized flow fingerprint, which the engine's CT-salvage
+  note stamps; no TPU kernel (the reference hashes on the host).
 
 Each wrapper takes the reference's arguments (without ``interpret``). On
 CUDA tensors it checks device, dtype, shape and contiguity, launches its
@@ -34,12 +37,14 @@ import torch
 from cilium_tpu_torch.kernels import _build
 from cilium_tpu_torch.kernels.conntrack import (_now, ct_home_pair,
                                                 ct_probe_core)
+from cilium_tpu_torch.kernels.hashing import hash_words_u64, i32
 from cilium_tpu_torch.kernels.lpm import (LpmDerived, lpm_derive,
                                           lpm_walk_prov_core)
+from cilium_tpu_torch.kernels.records import ct_key_words
 
 #: launches of each CUDA kernel since the last ``reset_launches``
 LAUNCHES = {"lpm_lookup_fused": 0, "ct_probe_pair_fused": 0,
-            "policy_verdict_fused": 0}
+            "policy_verdict_fused": 0, "flow_fingerprint_fused": 0}
 
 #: the snapshot tensors the verdict kernel reads
 POLICY_TENSOR_KEYS = ("id_class_of", "proto_family", "port_class",
@@ -336,3 +341,46 @@ def policy_verdict_fused(tensors: Dict[str, torch.Tensor],
             allow.data_ptr(), reason.data_ptr(), status.data_ptr(),
             redirect.data_ptr(), mrule.data_ptr())
     return allow, reason, status, redirect, mrule
+
+
+# --------------------------------------------------------------------------- #
+# Flow fingerprints (the CT-salvage note's; no TPU kernel)
+# --------------------------------------------------------------------------- #
+def flow_fingerprint_plain(src: torch.Tensor, dst: torch.Tensor,
+                           sport: torch.Tensor, dport: torch.Tensor,
+                           proto: torch.Tensor, direction: torch.Tensor
+                           ) -> torch.Tensor:
+    """Plain torch version of the fingerprint kernel: the row's CT key in
+    both orientations (``records.ct_key_words``), hashed in one pass
+    (``hashing.hash_words_u64``), XORed → [N] int32, the bit patterns of
+    ``shim.feeder.flow_hashes`` of the same rows."""
+    b = {"src": src, "dst": dst, "sport": sport, "dport": dport,
+         "proto": proto, "direction": direction}
+    n = src.shape[0]
+    h = hash_words_u64(torch.cat([ct_key_words(b, False),
+                                  ct_key_words(b, True)]))
+    return i32(h[:n] ^ h[n:])
+
+
+@torch.jit.ignore
+def flow_fingerprint_fused(src: torch.Tensor, dst: torch.Tensor,
+                           sport: torch.Tensor, dport: torch.Tensor,
+                           proto: torch.Tensor, direction: torch.Tensor
+                           ) -> torch.Tensor:
+    """Each row's flow fingerprint → [N] int32 (``flow_fingerprint_plain``).
+    Every column int32; the kernel reads ``src`` and ``dst`` ([N, 4]) 16
+    bytes a row, so they must be 16-byte aligned."""
+    if _on_cpu(src):
+        return flow_fingerprint_plain(src, dst, sport, dport, proto,
+                                      direction)
+    dev = src.device
+    n = src.shape[0]
+    fp = torch.empty((n,), dtype=torch.int32, device=dev)
+    _launch("flow_fp", "flow_fingerprint_fused", dev,
+            *[_ptr(a.contiguous(), _I32, (n, 4), name, dev, 16)
+              for name, a in (("src", src), ("dst", dst))],
+            *[_ptr(c.contiguous(), _I32, (n,), name, dev) for name, c in (
+                ("sport", sport), ("dport", dport), ("proto", proto),
+                ("direction", direction))],
+            n, fp.data_ptr())
+    return fp

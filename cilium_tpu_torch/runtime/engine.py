@@ -521,6 +521,9 @@ class Engine:
                             # as having dispatched a moment later)
                             if attempt == self._STALE_RETRIES - 1:
                                 raise
+            # the step's fingerprints serve only the pipeline's salvage
+            # note: the caller gets the reference's columns
+            out.pop("est_fp", None)
             self._fold_batch(batch, out, counters, active.snapshot, now)
         return out
 
@@ -901,6 +904,10 @@ class Engine:
 
         def finalize():
             out, counters = fin()
+            # the step's flow fingerprints (absent where no classify step
+            # built ``out``) feed the salvage note alone: the folds, the
+            # observers and the ticket see the reference's columns
+            fp = out.pop("est_fp", None)
             if batch.get("_canary") is not None:
                 # scheduler recovery canary: synthetic
                 # all-invalid rows proving the datapath round-trips after
@@ -918,8 +925,9 @@ class Engine:
             # verdict (oracle parity must stay exact), while the APPLIED
             # verdict rides the bounded established-fingerprint grace
             tracer, tid = active_trace()
-            with tracer.span(tid, "engine.fold.salvage"):
-                return self._ct_salvage_apply(batch, out)
+            with tracer.span(tid, "engine.fold.salvage",
+                             fp="host" if fp is None else "step"):
+                return self._ct_salvage_apply(batch, out, fp)
         return finalize
 
     # -- async shim ingestion (shim/feeder.py) ----------------------------------
@@ -1142,7 +1150,8 @@ class Engine:
             return self._remesh_last
 
     def _ct_salvage_apply(self, batch: Dict[str, np.ndarray],
-                          out: Dict[str, np.ndarray]
+                          out: Dict[str, np.ndarray],
+                          fp: Optional[np.ndarray] = None
                           ) -> Dict[str, np.ndarray]:
         """Post-audit verdict overlay for the bounded post-remesh grace
         window. Every finalized batch feeds the established-fingerprint
@@ -1151,14 +1160,24 @@ class Engine:
         pre-loss flip to allow — established flows ride over the lost
         shard's CT while forward packets cold-learn entries on the
         survivor mesh. Counted ``ct_salvage_grace_hits_total``; never
-        raises; copies on flip (the auditor holds the raw arrays)."""
+        raises; copies on flip (the auditor holds the raw arrays).
+
+        ``fp``: the rows' fingerprints as the classify step computed them
+        (its ``est_fp``); without them the filter hashes on the host. The
+        rows stamped count under ``ct_salvage_fp_rows_total{source=...}``,
+        ``step`` or ``host``."""
         try:
-            self._salvage_fp.note(batch, out)
+            stamped = self._salvage_fp.note(batch, out, fp)
+            if stamped:
+                source = "host" if fp is None else "step"
+                self.metrics.inc_counter(
+                    f'ct_salvage_fp_rows_total{{source="{source}"}}',
+                    stamped)
             if time.monotonic() >= self._salvage_until:
                 return out
             allow = np.asarray(out["allow"])
             m = (np.asarray(batch["valid"]) & ~allow
-                 & self._salvage_fp.hits(batch))
+                 & self._salvage_fp.hits(batch, fp))
             n = int(m.sum())
             if not n:
                 return out

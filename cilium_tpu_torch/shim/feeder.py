@@ -86,6 +86,12 @@ class EstablishedFingerprints:
       collision admits one flow for a bounded window, which is exactly
       the documented grace contract, never a policy bypass outside it.
 
+    Both take the rows' fingerprints as ``fp`` where the caller has them
+    (the classify step's ``est_fp`` column, ``flow_hashes`` computed on
+    the device); without it they hash ``buf`` on the host. Either way the
+    table is stamped here, in row order: where two rows of a batch share
+    a slot, the later one wins.
+
     ``note`` never raises (both call sites are verdict hot paths)."""
 
     def __init__(self, slots: int = EST_FILTER_SLOTS):
@@ -95,8 +101,11 @@ class EstablishedFingerprints:
         self._mask = np.uint32(slots - 1)
 
     def note(self, buf: Dict[str, np.ndarray],
-             out: Dict[str, np.ndarray]) -> None:
-        """Stamp fingerprints for rows applied allowed-ESTABLISHED/REPLY."""
+             out: Dict[str, np.ndarray],
+             fp: Optional[np.ndarray] = None) -> int:
+        """Stamp fingerprints for rows applied allowed-ESTABLISHED/REPLY
+        (``fp``: every row's fingerprint, uint32). → the rows stamped (0
+        when the update failed)."""
         try:
             st = np.asarray(out["status"])
             m = (np.asarray(out["allow"])
@@ -104,19 +113,26 @@ class EstablishedFingerprints:
                     | (st == int(C.CTStatus.REPLY)))
                  & np.asarray(buf["valid"]))
             if not m.any():
-                return
-            cols = {k: np.asarray(buf[k])[m]
-                    for k in ("src", "dst", "sport", "dport", "proto",
-                              "direction")}
-            h = flow_hashes(cols)
+                return 0
+            if fp is None:
+                h = flow_hashes({k: np.asarray(buf[k])[m]
+                                 for k in ("src", "dst", "sport", "dport",
+                                           "proto", "direction")})
+            else:
+                h = np.asarray(fp, dtype=np.uint32)[m]
             self._tab[h & self._mask] = h | np.uint32(1)
+            return int(h.shape[0])
         except Exception:   # noqa: BLE001 — heuristic, never load-bearing
             log.exception("established-fingerprint update failed")
+            return 0
 
-    def hits(self, buf: Dict[str, np.ndarray]) -> np.ndarray:
+    def hits(self, buf: Dict[str, np.ndarray],
+             fp: Optional[np.ndarray] = None) -> np.ndarray:
         """[N] bool: rows whose direction-normalized fingerprint is
-        stamped. Row-aligned with ``buf``; validity is the caller's mask."""
-        h = flow_hashes(buf)
+        stamped (``fp``: every row's fingerprint, uint32). Row-aligned
+        with ``buf``; validity is the caller's mask."""
+        h = flow_hashes(buf) if fp is None else np.asarray(fp,
+                                                           dtype=np.uint32)
         return self._tab[h & self._mask] == (h | np.uint32(1))
 
 

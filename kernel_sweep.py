@@ -156,6 +156,8 @@ def build_variants(libs, baseline=None):
     shutil.rmtree(root, ignore_errors=True)
     with open(os.path.join(_build.CSRC, "l2_hint.cuh")) as f:
         hints = f.read()
+    shared = [f for f in os.listdir(_build.CSRC)
+              if f.endswith(".cuh") and f != "l2_hint.cuh"]
     sources = {}
     for lib in libs:
         src = _build.KERNELS[lib][0]
@@ -177,6 +179,8 @@ def build_variants(libs, baseline=None):
         # a quoted #include finds the header beside the source first
         with open(os.path.join(where, "l2_hint.cuh"), "w") as f:
             f.write(header)
+        for name in shared:
+            shutil.copy(os.path.join(_build.CSRC, name), where)
         with open(os.path.join(where, src), "w") as f:
             f.write(text)
         out = os.path.join(where, "lib.so")

@@ -54,7 +54,7 @@ TIMING = {"overload", "resources", "trace"}
 REQUEST_TIMEOUT_S = 120.0
 #: the port's ``fused_state`` launch counts on the CPU: no kernel launches
 ZERO_LAUNCHES = {"lpm_lookup_fused": 0, "ct_probe_pair_fused": 0,
-                 "policy_verdict_fused": 0}
+                 "policy_verdict_fused": 0, "flow_fingerprint_fused": 0}
 
 
 def api(side):

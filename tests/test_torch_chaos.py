@@ -46,7 +46,8 @@ def test_in_process_drill_passes_every_jax_phase(argv, jax_phases, capsys):
     if "torch" in argv:
         assert set(doc["launches"]) == {"lpm_lookup_fused",
                                         "ct_probe_pair_fused",
-                                        "policy_verdict_fused"}
+                                        "policy_verdict_fused",
+                                        "flow_fingerprint_fused"}
     else:
         assert "launches" not in doc
 

@@ -17,9 +17,11 @@ import torch
 
 from cilium_tpu_torch.kernels import fused as fk
 from cilium_tpu_torch.kernels.classify import make_classify_fn
-from cilium_tpu_torch.kernels.edge_cases import (edge_cases, lpm_args,
+from cilium_tpu_torch.kernels.edge_cases import (edge_cases,
+                                                 fingerprint_rows, lpm_args,
                                                  policy_args, probe_args)
-from cilium_tpu_torch.kernels.records import unpack_wire, wire_to_torch
+from cilium_tpu_torch.kernels.records import (batch_to_torch, unpack_wire,
+                                              wire_to_torch)
 from cilium_tpu_torch.world import make_world
 
 pytestmark = pytest.mark.cuda
@@ -65,6 +67,29 @@ def test_kernels_match_plain_versions(device, config):
         for g, w in zip(fk.ct_probe_pair_fused(*args),
                         fk.ct_probe_pair_plain(*args)):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("config", ["cfg5", "mixed"])
+def test_flow_fingerprint_matches_plain_version(device, config):
+    """The fingerprint kernel against its plain version, synchronised
+    after each launch, on a world's batch (as unpacked from its wire) and
+    on 1,003 random rows (not a multiple of the block), and both against
+    ``shim.feeder.flow_hashes`` of the same rows on the host."""
+    import numpy as np
+    from cilium_tpu_torch.shim.feeder import flow_hashes
+    cols = ("src", "dst", "sport", "dport", "proto", "direction")
+    world = make_world(config, seed=5, device=device, preset="smoke")
+    fk.reset_launches()
+    for b in (_batch(world), batch_to_torch(fingerprint_rows(1003, 5),
+                                            device)):
+        args = [b[k] for k in cols]
+        got = fk.flow_fingerprint_fused(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fk.flow_fingerprint_plain(*args))
+        host = {k: b[k].cpu().numpy() for k in cols}
+        assert np.array_equal(got.cpu().numpy().view(np.uint32),
+                              flow_hashes(host))
+    assert fk.LAUNCHES["flow_fingerprint_fused"] == 2
 
 
 @pytest.mark.parametrize("config", ["cfg5", "mixed"])
@@ -131,8 +156,9 @@ def test_edge_cases_match_plain_versions(device):
 
 
 def test_wrappers_refuse_misaligned_inputs(device):
-    """K2 reads key words as 8-byte pairs and K3 reads L7 prefixes 16
-    bytes at a time; a view that breaks either alignment raises."""
+    """K2 reads key words as 8-byte pairs, K3 reads L7 prefixes and the
+    fingerprint kernel addresses 16 bytes at a time; a view that breaks
+    any of these alignments raises."""
     probe, policy, _lpm = edge_cases(seed=0)
     ct, fwd, rev, now, depth = probe_args(probe["wrap"], device)
     n = fwd.shape[0]
@@ -148,6 +174,13 @@ def test_wrappers_refuse_misaligned_inputs(device):
     moved.copy_(path)
     with pytest.raises(ValueError, match="aligned"):
         fk.policy_verdict_fused({**tensors, "l7_path": moved}, *rows)
+    b = batch_to_torch(fingerprint_rows(n, 1), device)
+    shifted = torch.empty(n * 4 + 1, dtype=torch.int32,
+                          device=device)[1:].view(n, 4)
+    shifted.copy_(b["src"])
+    with pytest.raises(ValueError, match="aligned"):
+        fk.flow_fingerprint_fused(shifted, b["dst"], b["sport"], b["dport"],
+                                  b["proto"], b["direction"])
 
 
 def test_lpm_derived_tables_follow_in_place_edits(device):
@@ -269,7 +302,8 @@ def test_mesh_on_the_card_equals_the_plain_mesh(device, mesh):
     equal; K2 launches once per flow shard a dispatch; the host-steered
     step (one step over the co-located shards) launches K1 and K3 once a
     dispatch, device RSS K1 once per shard and K3 never (it runs the
-    split policy core)."""
+    split policy core); the fingerprint kernel launches once a dispatch
+    on the host-steered step, never on device RSS."""
     import numpy as np
     engines = [_serve_engine(f, device, **mesh) for f in ("auto", "off")]
     batches = _peer_batches()
@@ -288,6 +322,9 @@ def test_mesh_on_the_card_equals_the_plain_mesh(device, mesh):
     assert launches["ct_probe_pair_fused"] == 4 * dispatched, launches
     k3 = 0 if device_rss else dispatched
     assert launches["policy_verdict_fused"] == k3, launches
+    # the exchange step builds its outputs without a classify step
+    fp = 0 if device_rss else dispatched
+    assert launches["flow_fingerprint_fused"] == fp, launches
     for want, got in zip(results[1], results[0]):
         for k in want:
             assert np.array_equal(want[k], got[k]), k

@@ -28,6 +28,7 @@ import pytest
 
 import chip_smoke as cs
 from tests import test_parity
+from tests.test_torch_datapath import PORT_OUT
 
 SIDES = ("jax", "torch")
 PKG = {"jax": "cilium_tpu", "torch": "cilium_tpu_torch"}
@@ -399,7 +400,9 @@ def wire_case(m, seed, now, pack, pack_l7):
             np.testing.assert_array_equal(out_a[k], out_b[k], k)
         for k in np_a:
             np.testing.assert_array_equal(np_a[k], np_b[k], k)
-        seen.append(({k: v.tolist() for k, v in out_a.items()},
+        # the port's own columns were held between its two paths above
+        seen.append(({k: v.tolist() for k, v in out_a.items()
+                      if k not in PORT_OUT},
                      {k: v.tolist() for k, v in np_a.items()}))
         prior.extend(packets)
         prior = prior[-100:]

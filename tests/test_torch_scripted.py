@@ -68,10 +68,11 @@ WAYS = ("eager", "scripted", "jax", "wire_eager", "wire")
 WIRE_WAYS = ("wire_eager", "wire")
 
 #: the Python-level torch calls one 8-shard steered CPU dispatch of the
-#: QoS soak's engine makes (``mesh_dispatch.TorchCalls``): 22 (the wire's
-#: upload, the outputs' moves to numpy in the finalize), and one more
-#: where the dispatch adds a buffer to the wire pool
-CALLS_BOUND = 23
+#: QoS soak's engine makes (``mesh_dispatch.TorchCalls``): 23 (the wire's
+#: upload, the outputs' moves to numpy in the finalize, the step's flow
+#: fingerprints among them), and one more where the dispatch adds a
+#: buffer to the wire pool
+CALLS_BOUND = 24
 
 
 class Ways:
