@@ -4,17 +4,19 @@ from the same batch, ``now`` and batch-start table.
 
 Per dispatch it counts
 - ``rows``: rows where a column differs: ``allow``, ``reason``, ``status``
-  and ``ct_state_pre``, ``ct_full``, ``remote_identity``; ``redirect``,
-  ``svc`` and ``rnat`` (false: no L7 rule and no service frontend);
-  ``nat_dst``/``nat_dport`` and ``rnat_src``/``rnat_sport`` (the row's own
-  addresses and ports); the length of ``lpm_prefix`` (-1 on a miss) and
-  whether ``matched_rule`` is set (exactly where the row's direction is
-  enforced); and rows whose ``matched_rule`` or ``lpm_prefix`` slot breaks
-  the labelling they stand for: rows of one (identity, protocol, port)
-  share one ``matched_rule``, rows of one ``matched_rule`` share one
-  policy answer, and the ``lpm_prefix`` slots stand one to one for the
-  winning prefixes (the numbers themselves are the compiler's
-  enumeration, which the reference does not work out);
+  and ``ct_state_pre``, ``ct_full``, ``remote_identity``, ``redirect``
+  (where the policy puts the row under an L7 rule set); ``svc`` and
+  ``rnat`` (false: no service frontend); ``nat_dst``/``nat_dport`` and
+  ``rnat_src``/``rnat_sport`` (the row's own addresses and ports); the
+  length of ``lpm_prefix`` (-1 on a miss) and whether ``matched_rule`` is
+  set (exactly where the row's direction is enforced); and rows whose
+  ``matched_rule`` or ``lpm_prefix`` slot breaks the labelling they stand
+  for: rows of one (identity, protocol, port) share one ``matched_rule``,
+  rows of one ``matched_rule`` share one policy answer (allowed or not, and
+  the L7 rule set, so one rule stands for one set), and the ``lpm_prefix``
+  slots stand one to one for the winning prefixes (the numbers themselves
+  are the compiler's enumeration, which the reference does not work out).
+  The program's rows and conntrack carry no L7 set number of their own;
 - ``ct_slots``: table slots where any array differs after the dispatch;
 - ``counters``: per-reason × direction cells, insert failures and
   evictions that differ.
@@ -28,7 +30,8 @@ import numpy as np
 
 from benchmark.reference.datapath import classify
 
-_SAME = ("allow", "reason", "status", "ct_full", "remote_identity")
+_SAME = ("allow", "reason", "status", "ct_full", "remote_identity",
+         "redirect")
 
 
 def _u32(d: Dict) -> Dict[str, np.ndarray]:
@@ -62,7 +65,7 @@ def compare(policy, batch, now, ct_before, ct_after, counters,
         bad |= np.asarray(out[k]).astype(np.int64) \
             != ref[k].astype(np.int64)
     bad |= out["ct_state_pre"] != ref["status"]
-    for k in ("redirect", "svc", "rnat"):
+    for k in ("svc", "rnat"):
         bad |= out[k].astype(bool)
     bad |= (out["nat_dst"] != batch["dst"]).any(1)
     bad |= out["nat_dport"] != batch["dport"]
@@ -77,8 +80,9 @@ def compare(policy, batch, now, ct_before, ct_after, counters,
     triple = _key(ref["remote_identity"][ruled].astype(np.int64),
                   batch["proto"][ruled], batch["dport"][ruled])
     bad[ruled] |= _conflicts(triple, rule[ruled])
-    bad[ruled] |= _conflicts(rule[ruled],
-                             ref["policy_allowed"][ruled].astype(np.int64))
+    bad[ruled] |= _conflicts(rule[ruled], _key(
+        ref["policy_allowed"][ruled].astype(np.int64),
+        ref["l7_set"][ruled]))
     hit = valid & (pfx >= 0)
     slot = pfx[hit] >> 8
     bad[hit] |= _conflicts(ref["lpm_which"][hit], slot)
@@ -111,7 +115,7 @@ def control_counts(policy, batch, now, ct_before) -> Dict[str, int]:
                   batch["proto"], batch["dport"])
     prog = dict(out)
     prog["ct_state_pre"] = out["status"]
-    prog["redirect"] = prog["svc"] = prog["rnat"] = np.zeros(n, bool)
+    prog["svc"] = prog["rnat"] = np.zeros(n, bool)
     prog["nat_dst"], prog["nat_dport"] = batch["dst"], batch["dport"]
     prog["rnat_src"], prog["rnat_sport"] = batch["src"], batch["sport"]
     prog["lpm_prefix"] = np.where(out["lpm_which"] >= 0,

@@ -37,6 +37,7 @@ import numpy as np
 from benchmark.harness import check, hostload, serve
 from benchmark.harness.kernel_bytes import dispatch_bytes
 from benchmark.reference.constants import CT_LIFETIME_CLOSE
+from benchmark.reference.datapath import policy_of_rows, remote_identity
 from benchmark.reference.policy import Policy
 
 #: the clock at the warm-up's first batch (logical seconds)
@@ -207,7 +208,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     # the datapath's device-resident groups (its wire pool is host memory)
     ledger = {k: v for k, v in eng.datapath.hbm_ledger()["groups"].items()
               if k != "wire_pool"}
-    lpm_v4 = eng.active.tensors["lpm_v4"].cpu().numpy()
+    placed = eng.active.tensors
+    tries = [placed[k].cpu().numpy() for k in ("lpm_v4", "lpm_v6")]
+    l7_rules = placed["l7_methods"].shape[1]
     records = [start] + [checked[i] for i in picks]
     if device == "cuda":
         torch.cuda.synchronize()
@@ -239,10 +242,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
                       for k, v in r["ct_after"].items()}
         else:
             before = r["ct_before"]
+            l7_sets = None
+            if policy.l7_sets:
+                ident = remote_identity(policy, r["batch"])[0]
+                l7_sets = policy_of_rows(policy, r["batch"], ident)[2]
             kbytes.append(dispatch_bytes(
-                lpm_v4, {k: np.ascontiguousarray(v).view(np.uint32)
+                *tries, {k: np.ascontiguousarray(v).view(np.uint32)
                          for k, v in before.items()},
-                r["batch"], r["out"], r["now"]))
+                r["batch"], r["out"], r["now"], l7_sets, l7_rules))
         got = check.compare(policy, r["batch"], r["now"], before,
                             r["ct_after"], r["counters"], r["out"])
         for k in counts:

@@ -14,6 +14,8 @@ DIR_INGRESS = 1
 OK = 0
 POLICY = 130
 CT_FULL = 137
+#: an L7 rule set matched none of the request's tokens
+POLICY_L7 = 180
 REASON_BINS = 256
 
 #: conntrack status of a row as of its batch's start
@@ -36,6 +38,13 @@ TCP_ACK = 0x10
 
 PROBE_DEPTH = 8
 KEY_WORDS = 10
+
+#: L7-lite: a request's method as its index here (255: the row carries
+#: none) and the first 64 bytes of its path, zero-padded
+HTTP_METHODS = ("GET", "POST", "PUT", "DELETE", "HEAD", "OPTIONS", "PATCH",
+                "TRACE", "CONNECT")
+HTTP_METHOD_NONE = 255
+PATH_BYTES = 64
 
 #: reserved identities
 IDENTITY_WORLD = 2

@@ -2,13 +2,20 @@
 numpy, from a conntrack table as of the batch's start.
 
 Per row: the remote address (the destination on egress, the source on
-ingress) is looked up in the ipcache by longest prefix; the row's forward
-and reverse conntrack keys are probed in the table (a slot matches while
-its expiry lies after ``now``); a row whose forward key is live is
+ingress) is looked up in the ipcache by longest prefix (a v4 row's address
+in its last word, a v6 row's in all four); the row's forward and reverse
+conntrack keys (the full addresses) are probed in the table (a slot matches
+while its expiry lies after ``now``); a row whose forward key is live is
 ESTABLISHED, else one whose reverse key is live is a REPLY, else it is NEW.
-A tracked row is allowed without the policy; a NEW row is allowed where its
-direction is not enforced, or where the policy allows its remote identity
-on its protocol and port, else dropped with reason POLICY.
+A tracked row is allowed without the L3/L4 policy; a NEW row is allowed
+where its direction is not enforced, or where the policy allows its remote
+identity on its protocol and port, else dropped with reason POLICY. Where
+the policy puts the row's identity, protocol and port under an L7 rule set,
+the row is redirected (``redirect``), and a row that carries a request (a
+method or a path byte) that no rule of the set matches is dropped with
+reason POLICY_L7, tracked or not; a row that carries none (a handshake) is
+not matched. Conntrack keeps no L7 state: every row of a flow is matched
+against the set as the policy stands.
 
 The table's changes, applied as one aggregate after every row has seen the
 batch-start table:
@@ -169,17 +176,12 @@ def classify(policy: Policy, batch: Dict[str, np.ndarray], now: int,
     batch-start table (uint32 arrays), left as it is. ``stateless`` is the
     control: every row is taken as NEW and the table is left unread (the
     conntrack guarantee broken)."""
-    if batch["is_v6"].any():
-        raise NotImplementedError("v6 rows")
     now = int(now) & 0xFFFFFFFF
     n = batch["valid"].shape[0]
     valid = batch["valid"].astype(bool)
     d = batch["direction"].astype(np.int64)
     proto = batch["proto"].astype(np.int64)
-    dport = batch["dport"].astype(np.int64)
-    remote = np.where(d == C.DIR_EGRESS, batch["dst"][:, 3],
-                      batch["src"][:, 3])
-    ident, which, plen = policy.lookup(remote)
+    ident, which, plen = remote_identity(policy, batch)
 
     fwd = key_words(batch)
     if stateless:
@@ -192,21 +194,14 @@ def classify(policy: Policy, batch: Dict[str, np.ndarray], now: int,
     new = valid & ~est & ~reply
     status = np.where(est, C.ESTABLISHED, np.where(reply, C.REPLY, C.NEW))
 
-    enforced = np.zeros(n, bool)
-    permitted = np.zeros(n, bool)
-    for slot in np.unique(batch["ep_slot"][valid]):
-        ep = endpoint_of_slot(policy, int(slot))
-        for direction in (C.DIR_EGRESS, C.DIR_INGRESS):
-            rows = valid & (batch["ep_slot"] == slot) & (d == direction)
-            if ep is None or not rows.any():
-                continue
-            if policy.enforced[(ep["ep_id"], direction)]:
-                enforced[rows] = True
-                permitted[rows] = policy.allowed(
-                    ep["ep_id"], direction, ident[rows], proto[rows],
-                    dport[rows])
-    allow = valid & (est | reply | ~enforced | permitted)
-    reason = np.where(allow | ~valid, C.OK, C.POLICY)
+    enforced, permitted, l7_set = policy_of_rows(policy, batch, ident)
+    tokens = (batch["http_method"] != C.HTTP_METHOD_NONE) \
+        | batch["http_path"].any(1)
+    l7_fail = (l7_set > 0) & tokens & ~policy.l7_match(
+        l7_set, batch["http_method"], batch["http_path"])
+    allow = valid & (est | reply | ~enforced | permitted) & ~l7_fail
+    reason = np.where(l7_fail, C.POLICY_L7,
+                      np.where(allow | ~valid, C.OK, C.POLICY))
 
     new_ct = {k: v.copy() for k, v in ct.items()}
     hit = est | reply
@@ -244,5 +239,40 @@ def classify(policy: Policy, batch: Dict[str, np.ndarray], now: int,
         valid, status, 0), "ct_full": failed,
         "remote_identity": np.where(valid, ident, 0),
         "enforced": valid & enforced, "policy_allowed": permitted,
+        "redirect": l7_set > 0, "l7_set": l7_set,
         "lpm_which": which, "lpm_plen": plen}
     return out, new_ct, counters
+
+
+def remote_identity(policy: Policy, batch: Dict[str, np.ndarray]):
+    """Each row's remote address looked up: → (identity, prefix index,
+    prefix length), as ``Policy.lookup_rows``."""
+    egress = (batch["direction"] == C.DIR_EGRESS)[:, None]
+    return policy.lookup_rows(np.where(egress, batch["dst"], batch["src"]),
+                              batch["is_v6"])
+
+
+def policy_of_rows(policy: Policy, batch: Dict[str, np.ndarray],
+                   ident: np.ndarray):
+    """→ (enforced [N], allowed by the L3/L4 policy [N], L7 rule set [N],
+    0 where none), for the valid rows of enforced directions (False and 0
+    elsewhere)."""
+    n = batch["valid"].shape[0]
+    valid = batch["valid"].astype(bool)
+    d = batch["direction"].astype(np.int64)
+    enforced = np.zeros(n, bool)
+    permitted = np.zeros(n, bool)
+    l7_set = np.zeros(n, np.int64)
+    for slot in np.unique(batch["ep_slot"][valid]):
+        ep = endpoint_of_slot(policy, int(slot))
+        for direction in (C.DIR_EGRESS, C.DIR_INGRESS):
+            rows = valid & (batch["ep_slot"] == slot) & (d == direction)
+            if ep is None or not rows.any():
+                continue
+            if policy.enforced[(ep["ep_id"], direction)]:
+                enforced[rows] = True
+                permitted[rows], l7_set[rows] = policy.verdict(
+                    ep["ep_id"], direction, ident[rows],
+                    batch["proto"][rows].astype(np.int64),
+                    batch["dport"][rows].astype(np.int64))
+    return enforced, permitted, l7_set

@@ -19,10 +19,23 @@ sets from 2^24, in the order they are first met. A CIDR identity carries
 ``reserved:world`` and a ``cidr:`` label for its prefix and for every
 shorter prefix that holds it; a rule's ``toCIDR`` gives its CIDRs such
 identities and ipcache entries when the rule is added, and ``toServices``
-does so for each backend's /32. A direction of an endpoint is enforced when
-some rule that selects the endpoint has a section for it; there, a packet
-is allowed when some block selects its remote identity and, where the block
-lists ports, its protocol and destination port.
+does so for each backend's /32 (/128 for a v6 address). A direction of an
+endpoint is enforced when some rule that selects the endpoint has a section
+for it; there, a packet is allowed when some block selects its remote
+identity and, where the block lists ports, its protocol and destination
+port. A block that names no peer (no ``fromEndpoints``, ``toEndpoints``,
+``toCIDR`` or ``toServices``) but lists ports selects every identity.
+
+L7-lite: a port entry of ``toPorts`` with ``rules.http`` (a list of
+``{method?, path?}``) makes its ports an L7 rule set for the identities its
+block selects: there a request is allowed when some rule's method is absent
+or equal to the request's and its path is a byte prefix of the request's
+path (up to 64 bytes), Cilium's ``rules.http`` with the path read as a
+prefix. Blocks on one (identity, protocol, port) union their rules. Where
+an L7 port of an identity is also allowed to it by another block without
+rules, or by L7 blocks of both that identity and every identity, the
+answer depends on a precedence this reference does not model: it refuses
+such a declaration.
 """
 
 from __future__ import annotations
@@ -40,6 +53,9 @@ _PROTOS = {"TCP": C.PROTO_TCP, "UDP": C.PROTO_UDP, "SCTP": C.PROTO_SCTP,
 #: the rule-document keys this reference knows; any other is refused
 _BLOCK_KEYS = {"fromEndpoints", "toEndpoints", "toCIDR", "toServices",
                "toPorts"}
+_PEER_KEYS = _BLOCK_KEYS - {"toPorts"}
+#: the identity of a key that every identity matches
+ANY = 0
 
 
 def _label_kv(label: str) -> Tuple[str, str, str]:
@@ -61,6 +77,11 @@ def _cidr_labels(cidr: str) -> FrozenSet[str]:
 
 def _norm(prefix: str) -> str:
     return str(ipaddress.ip_network(prefix, strict=False))
+
+
+def _host(ip: str) -> str:
+    """An address's own prefix: /32, or /128 for v6."""
+    return _norm(f"{ip}/{ipaddress.ip_address(ip).max_prefixlen}")
 
 
 class Policy:
@@ -99,7 +120,7 @@ class Policy:
     def _step_endpoint(self, ep):
         ident = self._allocate(frozenset(ep["labels"]), "cluster")
         for ip in ep.get("ips", ()):
-            self.ipcache[_norm(f"{ip}/32")] = ident
+            self.ipcache[_host(ip)] = ident
         self.endpoints.append(dict(ep, identity=ident))
 
     def _step_identity(self, body):
@@ -127,7 +148,7 @@ class Policy:
                         ref = svc["k8sService"]
                         for ip in self.services.get(
                                 (ref["namespace"], ref["serviceName"]), ()):
-                            self._cidr_identity(f"{ip}/32", f"{ip}/32")
+                            self._cidr_identity(_host(ip), _host(ip))
             self.rules.append(doc)
 
     # -- compiled answers --------------------------------------------------
@@ -142,7 +163,7 @@ class Policy:
             ref = svc["k8sService"]
             for ip in self.services.get((ref["namespace"],
                                          ref["serviceName"]), ()):
-                peers += self._by_label.get(f"cidr:{_norm(ip + '/32')}", [])
+                peers += self._by_label.get(f"cidr:{_host(ip)}", [])
         return peers
 
     def _by_kv(self, match_labels: Dict[str, str]) -> List[int]:
@@ -157,16 +178,25 @@ class Policy:
                 self._by_label.setdefault(lab, []).append(ident)
                 _s, k, v = _label_kv(lab)
                 self._by_pair.setdefault((k, v), []).append(ident)
-        # per (endpoint id, direction): enforced, allowed (id, proto, port)
-        # keys, and identities allowed on every port
+        # per (endpoint id, direction): enforced; the (identity, proto, port)
+        # keys allowed without L7 rules (identity ``ANY``: every identity);
+        # the identities allowed on every port; the keys under L7 rules and
+        # the number of each one's rule set in ``l7_sets`` (from 1)
         self.enforced: Dict[Tuple[int, int], bool] = {}
         self.allow_keys: Dict[Tuple[int, int], np.ndarray] = {}
         self.allow_any: Dict[Tuple[int, int], np.ndarray] = {}
+        self.l7_keys: Dict[Tuple[int, int], np.ndarray] = {}
+        self.l7_set: Dict[Tuple[int, int], np.ndarray] = {}
+        #: the L7 rule sets: each a frozenset of (method or None, path)
+        self.l7_sets: List[FrozenSet[Tuple[Optional[str], bytes]]] = []
+        self._port_keys: Dict[Tuple[int, int], Tuple[np.ndarray,
+                                                      np.ndarray]] = {}
         for ep in self.endpoints:
             ep_kv = {(k, v) for _s, k, v in map(_label_kv, ep["labels"])}
             for d, section in ((C.DIR_INGRESS, "ingress"),
                                (C.DIR_EGRESS, "egress")):
                 keys, any_ids, enforced = [], [], False
+                l7: Dict[int, FrozenSet] = {}
                 for doc in self.rules:
                     sel = doc.get("endpointSelector", {}).get(
                         "matchLabels", {})
@@ -174,23 +204,59 @@ class Policy:
                         continue
                     enforced = True
                     for block in doc[section]:
-                        peers = np.asarray(self._peers(block), np.int64)
-                        ports = [(_PROTOS[p.get("protocol", "TCP").upper()],
-                                  int(p["port"]))
-                                 for tp in block.get("toPorts", ())
-                                 for p in tp.get("ports", ())]
+                        every = block.get("toPorts") \
+                            and not set(block) & _PEER_KEYS
+                        peers = np.asarray([ANY] if every
+                                           else self._peers(block), np.int64)
                         if not block.get("toPorts"):
                             any_ids.append(peers)
                             continue
-                        for proto, port in ports:
-                            keys.append(_flow_key(peers, proto, port))
+                        for tp in block["toPorts"]:
+                            http = _http_rules(tp)
+                            for p in tp.get("ports", ()):
+                                fk = _flow_key(peers, _PROTOS[p.get(
+                                    "protocol", "TCP").upper()],
+                                    int(p["port"]))
+                                if http is None:
+                                    keys.append(fk)
+                                    continue
+                                for x in fk.tolist():
+                                    l7[x] = l7.get(x, frozenset()) | http
                 k = (ep["ep_id"], d)
                 self.enforced[k] = enforced
                 self.allow_keys[k] = np.unique(np.concatenate(
                     keys or [np.zeros(0, np.int64)]))
                 self.allow_any[k] = np.unique(np.concatenate(
                     any_ids or [np.zeros(0, np.int64)]))
+                self.l7_keys[k] = np.asarray(sorted(l7), np.int64)
+                self.l7_set[k] = np.asarray(
+                    [self._intern(l7[x]) for x in sorted(l7)], np.int64)
+                self._refuse_overlaps(k)
         self._lpm = _LPM(self.ipcache)
+
+    def _intern(self, rules: FrozenSet) -> int:
+        if rules not in self.l7_sets:
+            self.l7_sets.append(rules)
+        return self.l7_sets.index(rules) + 1
+
+    def _refuse_overlaps(self, k) -> None:
+        """Refuse an L7 key that another allow also covers (the precedence
+        this reference does not model, see the module's docstring)."""
+        l7 = self.l7_keys[k]
+        if not l7.size:
+            return
+        plain = self.allow_keys[k]
+        ident, port = l7 >> 24, l7 & 0xFFFFFF
+        every = ident == ANY
+        clash = np.isin(l7, plain) | np.isin(
+            port, plain[(plain >> 24) == ANY] & 0xFFFFFF)
+        clash |= ~every & (np.isin(port, port[every])
+                           | np.isin(ident, self.allow_any[k]))
+        clash |= every & (np.isin(port, plain & 0xFFFFFF)
+                          | (self.allow_any[k].size > 0))
+        if clash.any():
+            raise NotImplementedError(
+                "an L7 port that another allow also covers")
 
     def lookup(self, addr: np.ndarray):
         """v4 addresses [N] uint32 → (identity [N] uint32, winning prefix
@@ -198,20 +264,87 @@ class Policy:
         v4-mapped addresses, -1 on a miss)."""
         return self._lpm.lookup(addr)
 
-    def allowed(self, ep_id: int, direction: int, ident: np.ndarray,
-                proto: np.ndarray, dport: np.ndarray) -> np.ndarray:
+    def lookup_rows(self, words: np.ndarray, is_v6: np.ndarray):
+        """Rows' addresses [N, 4] uint32 (a v4 row's in its last word) and
+        their family [N] → as ``lookup``; a v6 row is matched on all 128
+        bits against the v6 entries, its length as the entry's own."""
+        ident, which, plen = self._lpm.lookup(words[:, 3])
+        v6 = np.asarray(is_v6, bool)
+        if v6.any():
+            ident[v6], which[v6], plen[v6] = self._lpm.lookup6(words[v6])
+        return ident, which, plen
+
+    def verdict(self, ep_id: int, direction: int, ident: np.ndarray,
+                proto: np.ndarray, dport: np.ndarray):
+        """→ (allowed [N] bool: some block allows the row's identity,
+        protocol and port; its L7 rule set [N] int64, 0 where none: the
+        set a request there has to match)."""
         k = (ep_id, direction)
-        keys = _flow_key(ident.astype(np.int64), proto, dport)
-        return np.isin(keys, self.allow_keys[k]) | np.isin(
-            ident.astype(np.int64), self.allow_any[k])
+        ident = ident.astype(np.int64)
+        keys = _flow_key(ident, proto, dport)
+        every = _flow_key(ANY, proto, dport)
+        plain = self.allow_keys[k]
+        allowed = np.isin(keys, plain) | np.isin(every, plain) \
+            | np.isin(ident, self.allow_any[k])
+        sets = np.zeros(keys.shape[0], np.int64)
+        l7 = self.l7_keys[k]
+        if l7.size:
+            for probe in (every, keys):
+                pos = np.clip(np.searchsorted(l7, probe), 0, l7.size - 1)
+                hit = l7[pos] == probe
+                sets[hit] = self.l7_set[k][pos[hit]]
+        return allowed | (sets > 0), sets
+
+    def l7_match(self, sets: np.ndarray, method: np.ndarray,
+                 path: np.ndarray) -> np.ndarray:
+        """Requests ([N] method index, [N, 64] path bytes) against the L7
+        sets ``sets`` [N] (0: none, which every request matches)."""
+        ok = sets == 0
+        for s in np.unique(sets[sets > 0]):
+            rows = np.flatnonzero(sets == s)
+            for want, prefix in self.l7_sets[int(s) - 1]:
+                m = np.ones(rows.shape[0], bool) if want is None \
+                    else method[rows] == C.HTTP_METHODS.index(want)
+                if prefix:
+                    m &= (path[rows, :len(prefix)] == np.frombuffer(
+                        prefix, np.uint8)).all(1)
+                ok[rows] |= m
+        return ok
 
     def allowed_ports(self, ep_id: int, direction: int, ident: int
                       ) -> List[Tuple[int, int]]:
-        """The (protocol, port) pairs on which ``ident`` is allowed."""
-        keys = self.allow_keys[(ep_id, direction)]
-        lo = int(ident) << 24
-        sel = keys[(keys >= lo) & (keys < lo + (1 << 24))]
+        """The (protocol, port) pairs on which ``ident`` is allowed, by its
+        own keys and those of every identity, under L7 rules or not."""
+        k = (ep_id, direction)
+        if k not in self._port_keys:
+            keys = np.unique(np.concatenate([self.allow_keys[k],
+                                             self.l7_keys[k]]))
+            self._port_keys[k] = keys, keys[(keys >> 24) == ANY]
+        keys, every = self._port_keys[k]
+        lo, hi = np.searchsorted(keys, [int(ident) << 24,
+                                        (int(ident) + 1) << 24])
+        sel = np.union1d(keys[lo:hi] & 0xFFFFFF, every)
         return [(int((x >> 16) & 0xFF), int(x & 0xFFFF)) for x in sel]
+
+
+def _http_rules(port_entry: Dict
+                ) -> Optional[FrozenSet[Tuple[Optional[str], bytes]]]:
+    """A ``toPorts`` entry's ``rules.http`` as (method or None, path)
+    pairs; None where it has none."""
+    rules = port_entry.get("rules") or {}
+    unknown = set(rules) - {"http"}
+    if unknown:
+        raise NotImplementedError(f"L7 rule kinds {sorted(unknown)}")
+    out = set()
+    for h in rules.get("http") or ():
+        method, path = h.get("method") or None, h.get("path", "").encode()
+        if method is not None and method not in C.HTTP_METHODS \
+                or len(path) > C.PATH_BYTES:
+            raise NotImplementedError(f"HTTP rule {h}")
+        out.add((method, path))
+    if out and not port_entry.get("ports"):
+        raise NotImplementedError("L7 rules without ports")
+    return frozenset(out) or None
 
 
 def _flow_key(ident, proto, port):
@@ -220,23 +353,27 @@ def _flow_key(ident, proto, port):
 
 
 class _LPM:
-    """Longest-prefix match over v4 entries: per length, the sorted
-    networks and their identities."""
+    """Longest-prefix match: per length, v4 entries as sorted networks and
+    v6 entries as a table of networks, each with its identity and index."""
 
     def __init__(self, entries: Dict[str, int]):
         self.prefixes: List[str] = []
         by_len: Dict[int, List[Tuple[int, int, int]]] = {}
+        by_len6: Dict[int, Dict[int, Tuple[int, int]]] = {}
         for i, (prefix, ident) in enumerate(entries.items()):
             net = ipaddress.ip_network(prefix)
-            if net.version != 4:
-                raise NotImplementedError("v6 ipcache entries")
             self.prefixes.append(prefix)
-            key = int(net.network_address) >> (32 - net.prefixlen)
-            by_len.setdefault(net.prefixlen, []).append((key, ident, i))
+            key = int(net.network_address) >> (net.max_prefixlen
+                                               - net.prefixlen)
+            if net.version == 6:
+                by_len6.setdefault(net.prefixlen, {})[key] = (ident, i)
+            else:
+                by_len.setdefault(net.prefixlen, []).append((key, ident, i))
         self.levels = []
         for plen in sorted(by_len, reverse=True):
             rows = np.asarray(sorted(by_len[plen]), np.int64)
             self.levels.append((plen, rows[:, 0], rows[:, 1], rows[:, 2]))
+        self.levels6 = sorted(by_len6.items(), reverse=True)
 
     def lookup(self, addr: np.ndarray):
         a = np.asarray(addr, np.int64)
@@ -257,6 +394,26 @@ class _LPM:
             todo &= ~hit
         return ident.astype(np.uint32), which, plen_out
 
+    def lookup6(self, words: np.ndarray):
+        """v6 addresses [N, 4] uint32 words, most significant first."""
+        addr = [(w0 << 96) | (w1 << 64) | (w2 << 32) | w3
+                for w0, w1, w2, w3 in np.asarray(words, np.int64).tolist()]
+        n = len(addr)
+        ident = np.full(n, C.IDENTITY_WORLD, np.int64)
+        which = np.full(n, -1, np.int64)
+        plen_out = np.full(n, -1, np.int64)
+        todo = range(n)
+        for plen, table in self.levels6:
+            rest = []
+            for i in todo:
+                got = table.get(addr[i] >> (128 - plen))
+                if got is None:
+                    rest.append(i)
+                else:
+                    ident[i], which[i] = got
+                    plen_out[i] = plen
+            todo = rest
+        return ident.astype(np.uint32), which, plen_out
 
 
 def endpoint_of_slot(policy: Policy, slot: int) -> Optional[Dict]:

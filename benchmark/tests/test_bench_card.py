@@ -1,6 +1,7 @@
 """On the card: a traced run at the test sizes reads every per-layer
 metric of its cell (the device's share and the kernels' roofline from the
-profiler, where the cell has them) and stays correct. Run on a
+profiler, where the cell has them) and stays correct; the test-only v6 +
+L7 world's too, through the CUDA kernels' v6 and L7 paths. Run on a
 machine with a CUDA device:
 
     python -m pytest benchmark/tests/test_bench_card.py -m cuda -q
@@ -10,9 +11,9 @@ import time
 
 import pytest
 
-from benchmark.harness import cell as cells
 from benchmark.harness.runner import run_cell
-from benchmark.tests.helpers import SEED
+from benchmark.tests import v6_l7
+from benchmark.tests.helpers import SEED, load
 
 
 @pytest.fixture
@@ -23,9 +24,9 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["cfg5.serve", "cfg3.serve"])
+@pytest.mark.parametrize("name", ["cfg5.serve", "cfg3.serve", v6_l7.NAME])
 def test_a_traced_run_reads_the_device(card, name):
-    cell = cells.load(name)
+    cell = load(name)
     res, _notes = run_cell(cell, SEED, 6.0, True, "cuda",
                            time.perf_counter(), test_sizes=True)
     assert res["correct"] is True
