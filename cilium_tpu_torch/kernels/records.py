@@ -309,6 +309,15 @@ def pack_batch_l7dict(b: BatchArrays, path_words: Optional[int] = None,
     always fresh — ``np.unique`` allocates regardless, and the upload layer
     dedups re-transfers by content instead)."""
     dict_words, idx = _pack_path_dict(b["http_path"], path_words, min_rows)
+    return pack_l7dict_wire(b, idx, force_full=force_full, out=out), \
+        dict_words
+
+
+def pack_l7dict_wire(b: BatchArrays, idx: np.ndarray,
+                     force_full: bool = False,
+                     out: Optional[np.ndarray] = None) -> np.ndarray:
+    """The wire half of ``pack_batch_l7dict``: ``idx`` [N] is each row's
+    index into the path dict that ``_pack_path_dict`` made."""
     n = b["valid"].shape[0]
     if not force_full and not b["is_v6"].any() \
             and not (b["ep_slot"] > PACK4_EP_SLOT_MAX).any():
@@ -324,11 +333,11 @@ def pack_batch_l7dict(b: BatchArrays, path_words: Optional[int] = None,
             | b["valid"].astype(np.uint32)
         wire[:, 4] = (b["http_method"].astype(np.uint32) << 24) \
             | idx.astype(np.uint32)
-        return wire, dict_words
+        return wire
     wire = _out_view(out, n, PACK_L7DICT_WORDS)
     pack_batch(b, l7=False, out=wire[:, :PACK_WORDS])
     wire[:, PACK_WORDS] = idx.astype(np.uint32)
-    return wire, dict_words
+    return wire
 
 
 # --------------------------------------------------------------------------- #

@@ -23,6 +23,9 @@ the hot path. So:
   pack/transfer/compute split, the engine's folds) attach spans to
   whatever trace is current (:func:`active`) without any signature changes
   across the DatapathBackend boundary.
+- **Attributes.** ``span(..., **attrs)`` gives a span its attributes;
+  ``annotate(**attrs)`` on the entered span adds those the spanned work
+  finds (a no-op on an unsampled span).
 - **Span ids and parents.** A span opened with ``span()`` gets an id, and
   its parent is the innermost span still open on the same thread (the same
   thread-local), so a stage's self time is its duration less its
@@ -81,6 +84,9 @@ class _NullSpan:
     def __exit__(self, *exc):
         return False
 
+    def annotate(self, **attrs) -> None:
+        pass
+
 
 _NULL_SPAN = _NullSpan()
 
@@ -112,6 +118,11 @@ class _SpanCtx:
                            self._attrs, self._sid, parent,
                            threading.get_ident()))
         return False
+
+    def annotate(self, **attrs) -> None:
+        """Add attributes known only inside the span (a count the spanned
+        work found)."""
+        self._attrs = {**(self._attrs or {}), **attrs}
 
 
 #: thread-local trace context: ``entry`` is (tracer, trace_id) of the

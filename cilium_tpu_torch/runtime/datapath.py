@@ -462,6 +462,9 @@ class TorchDatapath(DatapathBackend):
             "upload_cache_hits": 0,       # path dict served from device cache
             "upload_cache_misses": 0,
             "wire_flag_resets": 0,        # place() narrowed the wire format
+            "l7_rows": 0,                 # rows that carry an HTTP request
+            "v6_rows": 0,                 # is_v6 rows
+            "l7_dict_paths": 0,           # unique paths, summed over dicts
         }
         # live-patch attribution: how each place_patch applied (delta = the
         # in-place device scatter; full = whole-tensor re-upload) and how
@@ -598,6 +601,8 @@ class TorchDatapath(DatapathBackend):
                 self._l7_dict_rows = 1
                 self._path_dict_host = None
                 self._path_dict_dev = {}
+                with self._hbm_lock:
+                    self._hbm_groups.pop("l7_dict", None)
                 reset = True
             # slots run 0..len-1, so the compact wire fits through
             # len == PACK4_EP_SLOT_MAX + 1 inclusive
@@ -661,10 +666,12 @@ class TorchDatapath(DatapathBackend):
 
     def hbm_ledger(self) -> Dict[str, Any]:
         """Bytes per placed tensor group, live: verdict image / LPM tries /
-        policy planes / CT table (device-resident; a mesh counts each
-        logical tensor once) / the device-RSS exchange's peak bucket, plus
-        the pooled wire staging buffers (host memory; flagged so the two
-        kinds are never summed into one misleading number). On a CUDA
+        policy planes / CT table / the L7 wire's path dictionary
+        (``l7_dict``, present once a dictionary has been placed) / the
+        device-RSS exchange's peak bucket (device-resident; a mesh counts
+        each logical tensor once), plus the pooled wire staging buffers
+        (host memory; flagged so the two kinds are never summed into one
+        misleading number). On a CUDA
         device ``memory_allocated`` is the caching allocator's own count
         beside them (it also holds the step's transient tensors)."""
         with self._pack_lock:
@@ -903,20 +910,36 @@ class TorchDatapath(DatapathBackend):
 
         ``pooled=False`` skips the pool and counts the batch under
         ``pack_fallback_{fallback_reason}`` (the allocating steer of an
-        un-steered batch on a host-steered mesh)."""
+        un-steered batch on a host-steered mesh).
+
+        On the L7 wire the path dictionary's pack (``np.unique`` over the
+        batch's paths) is the span ``datapath.pack.l7_dict``, a child of
+        the caller's ``datapath.pack``, with the batch's ``rows``, the
+        unique ``paths`` and the padded ``dict_rows`` shipped. Every batch
+        adds to ``pack_stats`` ``l7_rows`` (rows that carry a request),
+        ``v6_rows`` and, on the L7 wire, ``l7_dict_paths`` (its unique
+        paths); ``render_metrics`` exports them as
+        ``datapath_<key>_total``. The device copy of the dictionary is the
+        ledger group ``l7_dict`` (``_upload_path_dict``), counted once on a
+        mesh."""
         from cilium_tpu_torch.kernels.records import (
-            PACK4_EP_SLOT_MAX, _path_words_of, pack_batch, pack_batch_l7dict,
-            pack_batch_v4, wire_words_for)
-        batch_l7 = bool(
-            (b["http_method"] != C.HTTP_METHOD_ANY).any()
-            or b["http_path"].any())
+            PACK4_EP_SLOT_MAX, _pack_path_dict, _path_words_of, pack_batch,
+            pack_batch_v4, pack_l7dict_wire, wire_words_for)
+        has_method = b["http_method"] != C.HTTP_METHOD_ANY
+        batch_l7 = bool(has_method.any() or b["http_path"].any())
+        # the rows are counted only where the batch carries a request: an
+        # L7-free batch pays no pass beyond the two reductions above
+        l7_rows = int(np.count_nonzero(
+            has_method | b["http_path"].any(axis=1))) if batch_l7 else 0
+        v6_rows = int(np.count_nonzero(b["is_v6"]))
         batch_wide = bool(
-            b["is_v6"].any()
-            or int(b["ep_slot"].max(initial=0)) > PACK4_EP_SLOT_MAX)
+            v6_rows or int(b["ep_slot"].max(initial=0)) > PACK4_EP_SLOT_MAX)
         path_dict = None
         n_rows = int(b["valid"].shape[0])
         zero_copy = self.config.zero_copy_ingest and pooled
         with self._pack_lock:
+            self.pack_stats["l7_rows"] += l7_rows
+            self.pack_stats["v6_rows"] += v6_rows
             if snap.l7.n_sets > 0:
                 self._wire_l7 |= batch_l7
             self._wire_wide |= batch_wide
@@ -940,12 +963,20 @@ class TorchDatapath(DatapathBackend):
         out = None if wire_buf is None else wire_buf.numpy().view(np.uint32)
         try:
             if use_l7:
-                wire, path_dict = pack_batch_l7dict(
-                    b, path_words=l7_path_words, min_rows=l7_min_rows,
-                    force_full=use_wide, out=out)
+                tracer, trace_id = active_trace()
+                with tracer.span(trace_id, "datapath.pack.l7_dict",
+                                 rows=n_rows) as span:
+                    path_dict, path_idx = _pack_path_dict(
+                        b["http_path"], l7_path_words, l7_min_rows)
+                    paths = int(path_idx.max(initial=-1)) + 1
+                    span.annotate(paths=paths,
+                                  dict_rows=int(path_dict.shape[0]))
+                wire = pack_l7dict_wire(b, path_idx, force_full=use_wide,
+                                        out=out)
                 with self._pack_lock:       # dict geometry stays grow-only
                     self._l7_dict_rows = max(self._l7_dict_rows,
                                              path_dict.shape[0])
+                    self.pack_stats["l7_dict_paths"] += paths
             elif not use_wide:
                 wire = pack_batch_v4(b, out=out)
             else:
@@ -1288,6 +1319,14 @@ class TorchDatapath(DatapathBackend):
             # safe to retain as the comparison baseline without a copy
             self._path_dict_host = path_dict
             self._path_dict_dev = devs
+            # its own ledger group, set only once a dictionary is placed:
+            # on the v4 wire the group is absent, so the groups (and the
+            # device bytes beyond them) read as they did before it existed.
+            # Every device holds the same dictionary: one logical tensor,
+            # counted once, as _logical_tensors counts a replicated trie
+            with self._hbm_lock:
+                self._hbm_groups["l7_dict"] = self._nbytes(
+                    next(iter(devs.values())))
         return devs
 
     def _check_placed(self, placed) -> None:

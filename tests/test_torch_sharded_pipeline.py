@@ -36,7 +36,8 @@ from tests.test_datapath import FIXTURE_RULES, pkt
 from tests.test_sharded_pipeline import (_mk_phase, _run_phase,
                                          fake_serial_engine,
                                          jit_pipeline_engine)
-from tests.test_torch_datapath import SIDES, assert_ct_equal, mods
+from tests.test_torch_datapath import (PORT_PACK_STATS, SIDES,
+                                       assert_ct_equal, mods, reference_keys)
 from tests.test_torch_faults import ref_shim_lib  # noqa: F401 (fixture)
 from tests.test_torch_datapath import pkt as side_pkt
 from tests.test_torch_pipeline import EchoDispatch
@@ -645,7 +646,8 @@ class TestShardedParity:
                 assert ps["pack_inplace"] > 0
                 assert eng8.pipeline_stats()["n_shards"] == 8
                 return (m.seen, live, ct_bytes(eng1), ct_bytes(eng8),
-                        dict(ps), dict(eng8.datapath.patch_stats))
+                        reference_keys(ps, PORT_PACK_STATS),
+                        dict(eng8.datapath.patch_stats))
             finally:
                 for e in (serial, eng1, eng8):
                     e.stop()
@@ -686,7 +688,8 @@ class TestShardedParity:
                 ps = eng.datapath.pack_stats
                 assert ps["pack_fallback_disabled"] > 0
                 assert ps["pack_inplace"] == 0
-                return m.seen, ct_bytes(eng), dict(ps)
+                return m.seen, ct_bytes(eng), reference_keys(
+                    ps, PORT_PACK_STATS)
             finally:
                 serial.stop()
                 eng.stop()
